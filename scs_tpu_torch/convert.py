@@ -6,11 +6,18 @@ start from identical data. The input is any object with scs_tpu's field
 names whose leaves are numpy arrays (or numbers) — e.g. a scs_tpu NamedTuple
 after `jax.tree.map(np.asarray, ...)`; this module itself imports no JAX.
 
-Field mapping: vectors and float scalars become tensors on `device`;
-iteration counters, statuses and the averaging count become Python
-numbers (the port keeps its control flow on the host). scs_tpu fields
-the port has no use for (dense A/P of the dense strategies, the batched
-path's deferred-rescale record) are dropped.
+Field mapping for the single-problem core: vectors and float scalars
+become tensors on `device`; iteration counters, statuses and the
+averaging count become Python numbers (the port keeps its control flow on
+the host). scs_tpu fields the single core has no use for (dense A/P of the
+dense strategies, the batched path's deferred-rescale record) are dropped.
+
+The batched path: `mats_from_numpy` takes a batched Mats as it is (every
+leaf keeps its leading B axis), and `batch_state_from_numpy` turns a
+batched scs_tpu State into batch_core.State, where every leaf — the int32
+counters, the bool rescale trigger and the deferred-rescale ratio
+included — is a tensor with a leading B axis. The factor slot L, empty
+under the bell strategy, is dropped.
 """
 
 from __future__ import annotations
@@ -18,12 +25,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import batch_core
 from .solver import AAState, BellData, Diag, Mats, PBell, State
 
 
 def _tensor(a, dtype, device):
     """A fresh tensor (a copy: the source may be a read-only view)."""
     a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.tensor(a, dtype=torch.bool, device=device)
     if np.issubdtype(a.dtype, np.integer):
         return torch.tensor(a, dtype=torch.int32, device=device)
     return torch.tensor(a, dtype=dtype, device=device)
@@ -93,3 +103,25 @@ def state_from_numpy(state, device="cpu", dtype=None) -> State:
         else:
             kw[f] = t(val)
     return State(**kw)
+
+
+def batch_state_from_numpy(state, device="cpu", dtype=None) -> batch_core.State:
+    """Batched scs_tpu State (numpy leaves with a leading B axis) ->
+    batch_core.State."""
+    dtype = dtype or _dtype_of(state.w)
+
+    def t(a):
+        return _tensor(a, dtype, device)
+
+    kw = {}
+    for f in batch_core.State._fields:
+        val = getattr(state, f)
+        if f == "diag":
+            kw[f] = Diag(*(t(getattr(val, g)) for g in Diag._fields))
+        elif f == "aa":
+            kw[f] = batch_core.AAState(
+                *(t(getattr(val, g)) for g in batch_core.AAState._fields)
+            )
+        else:
+            kw[f] = t(val)
+    return batch_core.State(**kw)

@@ -39,6 +39,9 @@ _SYMBOLS = {
     "bell_spmv": {
         "bell_spmv_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
         "bell_spmv_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+        # (blocks, cols, x, y, batch, nbr, width, bs, x_len, stream)
+        "bell_spmv_batched_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        "bell_spmv_batched_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     },
 }
 

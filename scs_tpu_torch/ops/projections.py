@@ -6,7 +6,8 @@ factory keeps scs_tpu's signature, proj(z, bl=None, bu=None), and its
 Moreau dual. Every other cone kind raises NotImplementedError naming the
 ROADMAP.md item that ports it.
 
-All functions take and return 1-D tensors of shape (m,).
+The projectors act on the last axis: a (m,) slack vector, or a (B, m)
+batch of them (the batched path), projected row by row.
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ def _proj_nonneg(x):
 
 
 def make_cone_projector(spec: ConeSpec, dtype=torch.float64) -> Callable:
-    """Build Pi_K for the full concatenated slack vector (shape (m,)).
+    """Build Pi_K for the full concatenated slack vector (last axis m).
 
     Returns proj(z, bl=None, bu=None). The zero and nonnegative segments
-    are contiguous row ranges (ConeSpec.segments), so the projector works
-    on slices; bl/bu (box bounds) are accepted for signature parity.
+    are contiguous ranges of the last axis (ConeSpec.segments), so the
+    projector works on slices; bl/bu (box bounds) are accepted for
+    signature parity.
     """
     plans = []
     for sg in spec.segments():
@@ -57,10 +59,10 @@ def make_cone_projector(spec: ConeSpec, dtype=torch.float64) -> Callable:
         parts = []
         for kind, lo, hi in plans:
             if kind == "z":
-                parts.append(torch.zeros_like(z[lo:hi]))
+                parts.append(torch.zeros_like(z[..., lo:hi]))
             else:
-                parts.append(_proj_nonneg(z[lo:hi]))
-        return torch.cat(parts) if parts else z.clone()
+                parts.append(_proj_nonneg(z[..., lo:hi]))
+        return torch.cat(parts, dim=-1) if parts else z.clone()
 
     return proj
 

@@ -10,6 +10,9 @@ unchanged, so a pack made by either package serves both.
                       hand-written kernel (csrc/bell_spmv.cu), a CPU tensor
                       takes the plain version
   * bell_spmv_ref   — the plain PyTorch version (gather + einsum)
+  * bell_spmv_batched, bell_spmv_batched_ref — the same for B problems at
+                      once (leading batch axis, per-problem cols), the
+                      operator of the batched bell path
   * BellMatrix      — packed (A, A^T) pair with .mv / .rmv
 """
 
@@ -41,6 +44,41 @@ def bell_spmv_ref(blocks, cols, x_pad):
     return y.reshape(nbr * bs)
 
 
+def _launch(who, symbol, blocks, cols, x_pad, out_shape, sizes):
+    """Check what every entry point of csrc/bell_spmv.cu takes (dtypes,
+    block size, one CUDA device, contiguity), then launch `symbol`'s f32 or
+    f64 instantiation on the current stream. Returns y; raises on anything
+    the kernel does not take and on a failed launch."""
+    dev = blocks.device
+    bs = blocks.shape[-1]
+    if blocks.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{who}: blocks must be float32 or float64, got {blocks.dtype}")
+    if x_pad.dtype != blocks.dtype:
+        raise TypeError(f"{who}: x dtype {x_pad.dtype} != blocks dtype {blocks.dtype}")
+    if cols.dtype != torch.int32:
+        raise TypeError(f"{who}: cols must be int32, got {cols.dtype}")
+    if not 1 <= bs <= 1024:
+        raise ValueError(f"{who}: block size {bs} outside [1, 1024] (one thread per row)")
+    for name, t in (("blocks", blocks), ("cols", cols), ("x", x_pad)):
+        if t.device != dev:
+            raise ValueError(f"{who}: {name} on {t.device}, blocks on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+
+    from . import _kernels  # noqa: PLC0415
+
+    lib = _kernels.load("bell_spmv")
+    fn = getattr(lib, symbol + ("_f32" if blocks.dtype == torch.float32 else "_f64"))
+    y = torch.empty(out_shape, dtype=blocks.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(blocks.data_ptr(), cols.data_ptr(), x_pad.data_ptr(), y.data_ptr(),
+                *sizes, stream)
+    if rc != 0:
+        raise RuntimeError(f"{who} kernel launch failed: cudaError {rc}")
+    return y
+
+
 def bell_spmv(blocks, cols, x_pad):
     """Block-ELL SpMV y = A @ x; shapes as bell_spmv_ref.
 
@@ -57,37 +95,11 @@ def bell_spmv(blocks, cols, x_pad):
     if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
         raise ValueError(f"bell_spmv: blocks must be (nbr, w, bs, bs), got {tuple(blocks.shape)}")
     nbr, width, bs, _ = blocks.shape
-    if blocks.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"bell_spmv: blocks must be float32 or float64, got {blocks.dtype}")
-    if x_pad.dtype != blocks.dtype:
-        raise TypeError(f"bell_spmv: x dtype {x_pad.dtype} != blocks dtype {blocks.dtype}")
-    if cols.dtype != torch.int32:
-        raise TypeError(f"bell_spmv: cols must be int32, got {cols.dtype}")
     if tuple(cols.shape) != (nbr, width):
         raise ValueError(f"bell_spmv: cols shape {tuple(cols.shape)} != {(nbr, width)}")
     if x_pad.dim() != 1 or x_pad.numel() % bs != 0:
         raise ValueError(f"bell_spmv: x must be 1-D with a multiple of bs={bs} elements")
-    if not 1 <= bs <= 1024:
-        raise ValueError(f"bell_spmv: block size {bs} outside [1, 1024] (one thread per row)")
-    for name, t in (("blocks", blocks), ("cols", cols), ("x", x_pad)):
-        if t.device != dev:
-            raise ValueError(f"bell_spmv: {name} on {t.device}, blocks on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"bell_spmv: {name} must be contiguous")
-
-    from . import _kernels  # noqa: PLC0415
-
-    lib = _kernels.load("bell_spmv")
-    fn = lib.bell_spmv_f32 if blocks.dtype == torch.float32 else lib.bell_spmv_f64
-    y = torch.empty(nbr * bs, dtype=blocks.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            blocks.data_ptr(), cols.data_ptr(), x_pad.data_ptr(), y.data_ptr(),
-            nbr, width, bs, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"bell_spmv kernel launch failed: cudaError {rc}")
+    y = _launch("bell_spmv", "bell_spmv", blocks, cols, x_pad, (nbr * bs,), (nbr, width, bs))
     bell_spmv.launches += 1
     return y
 
@@ -95,9 +107,70 @@ def bell_spmv(blocks, cols, x_pad):
 bell_spmv.launches = 0  # kernel launches since the last reset
 
 
+def bell_spmv_batched_ref(blocks, cols, x_pad):
+    """Plain batched block-ELL SpMV: y[b] = A_b @ x[b] for every problem b,
+    as one batched gather and one einsum (no per-problem loop).
+
+    blocks: (B, nbr, width, bs, bs), tiles transposed as in bell_spmv_ref;
+    cols: (B, nbr, width) block-column ids of each problem; x_pad:
+    (B, nbc*bs). Returns (B, nbr*bs).
+    """
+    B, nbr, width, bs, _ = blocks.shape
+    xb = x_pad.reshape(B, -1, bs)  # (B, nbc, bs)
+    idx = cols.reshape(B, nbr * width, 1).long().expand(B, nbr * width, bs)
+    gathered = torch.gather(xb, 1, idx)  # (B, nbr*width, bs)
+    y = torch.einsum(
+        "brki,brk->bri",
+        blocks.reshape(B, nbr, width * bs, bs),
+        gathered.reshape(B, nbr, width * bs),
+    )
+    return y.reshape(B, nbr * bs)
+
+
+_MAX_BATCH = 65535  # the kernel's batch is its grid's y axis
+
+
+def bell_spmv_batched(blocks, cols, x_pad):
+    """Batched block-ELL SpMV y[b] = A_b @ x[b]; shapes as
+    bell_spmv_batched_ref.
+
+    On a CUDA tensor this launches the batched entry point of
+    csrc/bell_spmv.cu (the problem is the grid's second axis) on the
+    current stream and counts the launch in `bell_spmv_batched.launches`;
+    anything the kernel does not take raises. On a CPU tensor it is
+    bell_spmv_batched_ref.
+    """
+    dev = blocks.device
+    if dev.type == "cpu":
+        return bell_spmv_batched_ref(blocks, cols, x_pad)
+    if dev.type != "cuda":
+        raise ValueError(f"bell_spmv_batched: unsupported device {dev}")
+    if blocks.dim() != 5 or blocks.shape[3] != blocks.shape[4]:
+        raise ValueError(
+            f"bell_spmv_batched: blocks must be (B, nbr, w, bs, bs), got {tuple(blocks.shape)}"
+        )
+    B, nbr, width, bs, _ = blocks.shape
+    if not 1 <= B <= _MAX_BATCH:
+        raise ValueError(f"bell_spmv_batched: batch {B} outside [1, {_MAX_BATCH}]")
+    if tuple(cols.shape) != (B, nbr, width):
+        raise ValueError(f"bell_spmv_batched: cols shape {tuple(cols.shape)} != {(B, nbr, width)}")
+    if x_pad.dim() != 2 or x_pad.shape[0] != B or x_pad.shape[1] % bs != 0:
+        raise ValueError(
+            f"bell_spmv_batched: x must be (B={B}, k*bs) with bs={bs}, got {tuple(x_pad.shape)}"
+        )
+    y = _launch("bell_spmv_batched", "bell_spmv_batched", blocks, cols, x_pad,
+                (B, nbr * bs), (B, nbr, width, bs, x_pad.shape[1]))
+    bell_spmv_batched.launches += 1
+    return y
+
+
+bell_spmv_batched.launches = 0  # kernel launches since the last reset
+
+
 def pad_to(x, length):
-    """x zero-padded at the end to `length` elements."""
-    return torch.nn.functional.pad(x, (0, length - x.shape[0]))
+    """x zero-padded at the end of its last axis to `length` elements (a
+    new contiguous tensor, also when no padding is needed)."""
+    return torch.nn.functional.pad(x, (0, length - x.shape[-1]))
 
 
 class BellMatrix(NamedTuple):
@@ -165,6 +238,26 @@ def pack_bell_host(A_csc, block_size=128, np_dtype=np.float32):
     d = np.asarray(A_csc.multiply(A_csc).sum(axis=0), np_dtype).ravel()
     r = np.asarray(A_csc.multiply(A_csc).sum(axis=1), np_dtype).ravel()
     return A_blocks, A_cols, At_blocks, At_cols, d, r
+
+
+def stack_bell_host(blocks_list, cols_list):
+    """Stack B host packs of one shape class into a batched pack (numpy
+    blocks (B, nbr, w, bs, bs), cols (B, nbr, w)). Each pack is padded to
+    the largest width with zero tiles pointing at block-column 0, which add
+    zeros, so the problems need not share a pattern (scs_tpu
+    batch.py:565-584)."""
+    w = max(bk.shape[1] for bk in blocks_list)
+    outs_b, outs_c = [], []
+    for bk, ck in zip(blocks_list, cols_list):
+        pad = w - bk.shape[1]
+        if pad:
+            bk = np.concatenate(
+                [bk, np.zeros((bk.shape[0], pad) + bk.shape[2:], bk.dtype)], axis=1
+            )
+            ck = np.concatenate([ck, np.zeros((ck.shape[0], pad), ck.dtype)], axis=1)
+        outs_b.append(bk)
+        outs_c.append(ck)
+    return np.stack(outs_b), np.stack(outs_c)
 
 
 def _np_dtype(dtype):

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from scs_tpu.cones import ConeSpec as JConeSpec
@@ -63,3 +64,21 @@ def test_get_projector_cached_and_signature(cone):
 def test_unported_cones_raise(cone, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         tpr.make_cone_projector(ConeSpec.from_dict(cone))
+
+
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("cone", CONES)
+def test_projector_on_batch_equals_row_loop(cone, dual):
+    """The batched path projects (B, m) slacks along the last axis: each
+    row equals the (m,) projection of that row, and scs_tpu's vmap."""
+    tspec = ConeSpec.from_dict(cone)
+    make_t = tpr.make_dual_cone_projector if dual else tpr.make_cone_projector
+    make_j = jpr.make_dual_cone_projector if dual else jpr.make_cone_projector
+    proj = make_t(tspec, torch.float64)
+    Z = np.stack([_input(tspec.dim, s) for s in range(4)])
+    out = proj(torch.as_tensor(Z)).numpy()
+    assert out.shape == Z.shape
+    rows = np.stack([proj(torch.as_tensor(z)).numpy() for z in Z])
+    np.testing.assert_array_equal(out, rows)
+    vj = jax.vmap(make_j(JConeSpec.from_dict(cone), jnp.float64))
+    np.testing.assert_array_equal(out, np.asarray(vj(jnp.asarray(Z))))

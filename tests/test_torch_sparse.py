@@ -1,9 +1,10 @@
 """Block-ELL packing and SpMV: scs_tpu_torch against scs_tpu.
 
 The same numpy-seeded matrices and vectors go through both packages. On
-the CPU the port's bell_spmv is its plain PyTorch version; the CUDA kernel
-(scs_tpu_torch/ops/csrc/bell_spmv.cu) is checked against that plain
-version on the card by the `cuda`-marked test below and by chip_smoke.py.
+the CPU the port's bell_spmv and bell_spmv_batched are their plain PyTorch
+versions; the CUDA kernel (scs_tpu_torch/ops/csrc/bell_spmv.cu, single and
+batched entry points) is checked against those plain versions on the card
+by the `cuda`-marked tests below and by chip_smoke.py.
 """
 
 import os
@@ -13,6 +14,7 @@ import pytest
 import torch
 from scipy import sparse
 
+import jax
 import jax.numpy as jnp
 
 from scs_tpu.ops import sparse as jsp
@@ -146,3 +148,106 @@ def test_bell_spmv_kernel_matches_plain_on_card(cuda_device, m, n, bs, density, 
     y_p = tsp.bell_spmv_ref(bm.A_blocks, bm.A_cols, x)
     bound = tol * tsp.bell_spmv_ref(bm.A_blocks.abs(), bm.A_cols, x.abs())
     assert bool(torch.all((y_k - y_p).abs() <= bound))
+
+
+# Batched packs (B, nbr, w, bs, bs): B problems of one (m, n) with their own
+# patterns, stacked at the largest width (zero tiles at block-column 0).
+# (m, n, bs, densities): ragged edges, a wide pack (w == nbc) and mixed
+# widths.
+BATCH_CASES = [
+    (100, 70, 8, (0.01, 0.05, 0.2)),
+    (96, 200, 8, (0.5, 0.5)),
+    (300, 200, 16, (0.002, 0.05, 0.01, 0.1)),
+]
+
+
+def _batched_pack(m, n, bs, densities, np_dtype, transpose=False):
+    packs = [
+        tsp.pack_bell_host(_rand_csc(m, n, d, m + n + k), bs, np_dtype)
+        for k, d in enumerate(densities)
+    ]
+    i = 2 if transpose else 0
+    blocks, cols = tsp.stack_bell_host([p[i] for p in packs], [p[i + 1] for p in packs])
+    nbc = packs[0][3 - i].shape[0]  # block-rows of the other orientation
+    x = np.random.RandomState(len(densities)).randn(len(densities), nbc * bs)
+    return blocks, cols, x.astype(np_dtype)
+
+
+def test_stack_bell_host_pads_with_zero_tiles():
+    blocks, cols, _ = _batched_pack(300, 200, 16, (0.002, 0.1), np.float64)
+    w0 = tsp.pack_bell_host(_rand_csc(300, 200, 0.002, 500), 16, np.float64)[0].shape[1]
+    assert blocks.shape[2] > w0  # the sparser problem was padded
+    assert not blocks[0, :, w0:].any() and not cols[0, :, w0:].any()
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("np_dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("m,n,bs,densities", BATCH_CASES)
+def test_bell_spmv_batched_ref_matches_vmap_and_loop(m, n, bs, densities, np_dtype, transpose):
+    """bell_spmv_batched_ref equals scs_tpu's bell_spmv_ref under jax.vmap
+    and a per-problem loop of the port's bell_spmv_ref."""
+    blocks, cols, x = _batched_pack(m, n, bs, densities, np_dtype, transpose)
+    y_t = tsp.bell_spmv_batched_ref(
+        torch.as_tensor(blocks), torch.as_tensor(cols), torch.as_tensor(x)
+    ).numpy()
+    y_j = np.asarray(jax.vmap(jsp.bell_spmv_ref)(jnp.asarray(blocks), jnp.asarray(cols), jnp.asarray(x)))
+    y_loop = np.stack([
+        tsp.bell_spmv_ref(torch.as_tensor(b), torch.as_tensor(c), torch.as_tensor(xx)).numpy()
+        for b, c, xx in zip(blocks, cols, x)
+    ])
+    assert y_t.shape == (len(densities), blocks.shape[1] * bs)
+    scale = np.abs(blocks).sum(axis=(2, 3)).max() * np.abs(x).max()
+    for other in (y_j, y_loop):
+        np.testing.assert_allclose(y_t, other, rtol=RTOL[np_dtype], atol=RTOL[np_dtype] * scale)
+
+
+@pytest.mark.parametrize("m,n,bs,densities", BATCH_CASES)
+def test_bell_spmv_batched_matches_pallas_interpret_vmap(m, n, bs, densities):
+    """The port's batched wrapper (plain version on CPU tensors) against
+    scs_tpu's Pallas kernel under jax.vmap through the interpreter, f32:
+    the batched bell path's operator in both packages."""
+    blocks, cols, x = _batched_pack(m, n, bs, densities, np.float32)
+    vk = jax.vmap(lambda b, c, xx: jsp.bell_spmv(b, c, xx, interpret=True))
+    y_j = np.asarray(vk(jnp.asarray(blocks), jnp.asarray(cols), jnp.asarray(x)))
+    before = tsp.bell_spmv_batched.launches
+    y_t = tsp.bell_spmv_batched(torch.as_tensor(blocks), torch.as_tensor(cols), torch.as_tensor(x))
+    assert tsp.bell_spmv_batched.launches == before  # CPU tensors: no kernel launch
+    np.testing.assert_allclose(y_t.numpy(), y_j, rtol=1e-5, atol=1e-5)
+
+
+def test_bell_spmv_batched_rejects_other_devices():
+    blocks = torch.zeros((1, 1, 1, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsp.bell_spmv_batched(blocks, torch.zeros((1, 1, 1), dtype=torch.int32), torch.zeros((1, 8)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("m,n,bs,densities", BATCH_CASES)
+def test_bell_spmv_batched_kernel_matches_plain_on_card(cuda_device, m, n, bs, densities, dtype, tol):
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    blocks, cols, x = (
+        torch.as_tensor(a, device=cuda_device)
+        for a in _batched_pack(m, n, bs, densities, np_dtype)
+    )
+    before = tsp.bell_spmv_batched.launches
+    y_k = tsp.bell_spmv_batched(blocks, cols, x)
+    torch.cuda.synchronize()
+    assert tsp.bell_spmv_batched.launches == before + 1
+    y_p = tsp.bell_spmv_batched_ref(blocks, cols, x)
+    bound = tol * tsp.bell_spmv_batched_ref(blocks.abs(), cols, x.abs())
+    assert bool(torch.all((y_k - y_p).abs() <= bound))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,bs,density", CASES)
+def test_bell_spmv_batched_b1_equals_single_kernel_on_card(cuda_device, m, n, bs, density, dtype):
+    """A B = 1 launch of the batched entry point gives bell_spmv's output
+    bit for bit (the same arithmetic, offset by problem 0)."""
+    bm = tsp.pack_bell(_rand_csc(m, n, density, m + n), bs, dtype, cuda_device)
+    x = torch.as_tensor(np.random.RandomState(6).randn(bm.n_pad), dtype=dtype, device=cuda_device)
+    y1 = tsp.bell_spmv(bm.A_blocks, bm.A_cols, x)
+    yb = tsp.bell_spmv_batched(bm.A_blocks[None], bm.A_cols[None], x[None])
+    assert yb.shape == (1, y1.shape[0])
+    assert torch.equal(yb[0], y1)
