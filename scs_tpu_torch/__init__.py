@@ -8,10 +8,13 @@ Settings, the status constants, the info dict). The port runs in
 PyTorch; where scs_tpu ran a Pallas TPU kernel, it runs a CUDA kernel
 written by hand for Hopper (ops/csrc/), built with nvcc at first use.
 
-Ported so far, under the "bell" strategy (block-ELL matrix-free CG) over
-zero and nonnegative cones, with or without P: single-problem solves
-(SCS, solve) and batches of B same-shape sparse problems (BatchedSCS,
-solve_batch). The rest is queued in ROADMAP.md. The package never imports
+Ported so far, over zero and nonnegative cones, with or without P, single
+problems (SCS, solve) and batches (BatchedSCS, solve_batch): the dense
+strategies "direct" (Cholesky factor or precomputed inverse) and
+"indirect" (CG), whose matvecs run through the batched GEMV kernels
+(ops/dense.py), a batch being a dense (B, m, n) array; and the "bell"
+strategy (block-ELL matrix-free CG), a batch being a list of sparse
+matrices. The rest is queued in ROADMAP.md. The package never imports
 JAX; scs_tpu stays the reference it is tested against.
 """
 

@@ -4,9 +4,11 @@ The port of scs_tpu/api.py: the same constructor and data validation
 (CSC acceptance with warning, sparse b/c flattening, P upper-triangle
 extraction), the same solve()/update() signatures and the same info dict.
 
-Only the "bell" strategy (block-ELL matrix-free CG) runs here so far; a
-problem that resolves to "direct" or "indirect" raises NotImplementedError
-naming the ROADMAP.md item that ports it.
+All three strategies run: "direct" (dense Cholesky, or the precomputed
+inverse with direct_solver="inverse"), "indirect" (matrix-free CG on dense
+A) and "bell" (block-ELL matrix-free CG). What still raises
+NotImplementedError, naming its ROADMAP.md item: phase_timing="always", and
+float32 below eps 3e-5 on the dense path (scs_tpu's compensated hi_acc mode).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from . import info as info_mod
 from . import native
 from .cones import ConeSpec
 from .io import CsvLogger, print_footer, print_header, print_iter_line, write_problem
-from .normalize import identity_scaling, ruiz_equilibrate_sparse
+from .normalize import identity_scaling, ruiz_equilibrate, ruiz_equilibrate_sparse
 from .settings import Settings
 from .solver import BellData, Core, Mats
 
@@ -63,12 +65,6 @@ _INDIRECT = {
     LinearSolver.GPU_INDIRECT,
     LinearSolver.PALLAS_CG,
 }
-
-_NOT_PORTED = {
-    "direct": "ROADMAP.md Queue 1 item 5 (dense direct strategy)",
-    "indirect": "ROADMAP.md Queue 1 item 9 (indirect strategy)",
-}
-
 
 def _block_ell_stats(A_csc, bs):
     """Estimated element counts of the block-ELL pack of (A, A^T) vs the
@@ -205,11 +201,6 @@ class SCS:
             raise ValueError(
                 f"Total cone dimension {spec.dim} does not match length of b ({m})"
             )
-        if strategy != "bell":
-            raise NotImplementedError(
-                f"solver strategy {strategy!r} is not ported to scs_tpu_torch "
-                f"yet: {_NOT_PORTED[strategy]}; pass solver_strategy='bell'"
-            )
         self.stg.solver_strategy = strategy
         if self.stg.phase_timing == "always":
             raise NotImplementedError(
@@ -230,31 +221,60 @@ class SCS:
         has_P = P_triu is not None
         self.has_P = has_P
 
-        # Fully sparse preprocessing: equilibration, preconditioner sums
-        # and the block-ELL packs all run on CSC data — the dense (m, n)
-        # array is never formed, host or device.
-        P_full = None
-        if has_P:
-            U = P_triu
-            P_full = (U + U.T - sparse.diags(U.diagonal())).tocsc()
-        if self.stg.normalize:
-            Ah_sp, Ph_sp, bh, ch, scal, spec_hat = ruiz_equilibrate_sparse(
-                self._A_input, P_full, b, c, spec
-            )
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=self._device)
+
+        bell = pbell = Ah = Ph = None
+        if strategy == "bell":
+            # Fully sparse preprocessing: equilibration, preconditioner sums
+            # and the block-ELL packs all run on CSC data — the dense (m, n)
+            # array is never formed, host or device.
+            P_full = None
+            if has_P:
+                U = P_triu
+                P_full = (U + U.T - sparse.diags(U.diagonal())).tocsc()
+            if self.stg.normalize:
+                Ah_sp, Ph_sp, bh, ch, scal, spec_hat = ruiz_equilibrate_sparse(
+                    self._A_input, P_full, b, c, spec
+                )
+            else:
+                scal = identity_scaling(m, n)
+                Ah_sp, Ph_sp, bh, ch, spec_hat = self._A_input, P_full, b, c, spec
+            bell, pbell = self._build_bell(Ah_sp, Ph_sp, spec_hat, dtype)
         else:
-            scal = identity_scaling(m, n)
-            Ah_sp, Ph_sp, bh, ch, spec_hat = self._A_input, P_full, b, c, spec
-        bell, pbell = self._build_bell(Ah_sp, Ph_sp, spec_hat, dtype)
+            A_dense = (
+                native.csc_to_dense(self._A_input)
+                if native.available
+                else np.asarray(self._A_input.todense())
+            )
+            P_dense = None
+            if has_P:
+                # P holds the upper triangle; expand to the full symmetric
+                # matrix for the dense path
+                if native.available:
+                    P_dense = native.csc_triu_to_dense_sym(P_triu)
+                else:
+                    U = np.asarray(P_triu.todense())
+                    P_dense = U + U.T - np.diag(np.diag(U))
+            # normalization is host-side numpy preprocessing, as in scs_tpu
+            if self.stg.normalize:
+                Ah, Ph, bh, ch, scal, spec_hat = ruiz_equilibrate(
+                    A_dense, P_dense, b, c, spec
+                )
+            else:
+                scal = identity_scaling(m, n)
+                Ah, Ph, bh, ch, spec_hat = A_dense, P_dense, b, c, spec
+            Ah = t(Ah).contiguous()
+            Ph = t(Ph).contiguous() if has_P else None
         self._scal = scal
         self._spec_hat = spec_hat
         self._sc_prod = float(np.asarray(scal.sc_b) * np.asarray(scal.sc_c))
 
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=self._device)
-
         self.mats = Mats(
             bell=bell,
             pbell=pbell,
+            A=Ah,
+            P=Ph,
             bn=t(bh),
             cn=t(ch),
             bl=t(spec_hat.bl),
@@ -268,7 +288,8 @@ class SCS:
         )
 
         self.core = Core(m, n, has_P, spec_hat, self.stg)
-        self._state0 = self.core.init_state(self.mats)  # setup: g by CG
+        # setup: the factorization (direct) and g
+        self._state0 = self.core.init_state(self.mats)
         self.core._sync()
         self._setup_time = time.perf_counter() - t0
         self._warm = None  # (u, v, scale) from the previous solve
@@ -381,7 +402,12 @@ class SCS:
         if verbose:
             print_header(
                 stg, self.m, self.n, self.spec,
-                f"matrix-free CG, block-ELL SpMV ({core.device})", "1.0.0",
+                {
+                    "direct": f"dense-cholesky direct ({core.device})",
+                    "indirect": f"matrix-free CG, dense ({core.device})",
+                    "bell": f"matrix-free CG, block-ELL SpMV ({core.device})",
+                }[stg.solver_strategy],
+                "1.0.0",
             )
 
         self._last_state = state
@@ -620,7 +646,8 @@ class SCS:
                 cn=t(scal.sc_c * scal.E * c), norm_c=t(np.linalg.norm(c))
             )
         self.mats = mats
-        # g depends on (b, c): recompute it; the packs are reused
+        # g depends on (b, c): recompute it with the cached factor (or the
+        # packs); no factorization runs here
         self._state0 = self.core.init_from_factor(self.mats, self._state0.L)
 
 

@@ -1,20 +1,27 @@
-"""Batched multi-problem solving: B same-shape SPARSE problems under the
-bell strategy — the port of scs_tpu/batch.py's bell path.
+"""Batched multi-problem solving: B same-shape problems as one batched
+core — the port of scs_tpu/batch.py.
 
-The reference serves B sparse instances with a thread pool, one solver
-per thread; scs_tpu solves them as one vmapped program; here they run as
-one batched core (batch_core.BatchedCore) whose every operator call is
-one launch of the batched block-ELL SpMV for the whole batch. The (B, m, n)
-dense batch is never formed, on the host or the device.
+The reference serves B instances with a thread pool, one solver per
+thread; scs_tpu solves them as one vmapped program; here they run as one
+batched core (batch_core.BatchedCore) in masked lockstep. Two paths:
+
+  * dense: A is a (B, m, n) array (or a list densified to one) under the
+    "direct" strategy (a batched Cholesky at setup; by default the factor
+    slot holds S^-1 and every solve is one batched matvec) or "indirect"
+    (batched CG). Upload, Ruiz equilibration, factorization and g all run
+    on the device; every dense matvec is one launch of the batched GEMV
+    kernels (ops/dense.py) for the whole batch;
+  * bell: A is a list of B scipy sparse matrices; every operator call is
+    one launch of the batched block-ELL SpMV, and the (B, m, n) dense batch
+    is never formed, on the host or the device.
 
 The solve loop is scs_tpu's, decision for decision (batch.py:1024-1189):
 segments of masked chunks, a speculative next segment run before the
 current segment's probe is read, the adaptive rescale applied between
 segments to the speculatively advanced state, retirement of finished
 problems and compaction of the survivors down a halving bucket ladder,
-the time limit and Ctrl-C. Only the dense batched path (direct and
-indirect strategies on a (B, m, n) array) is not ported: it raises
-NotImplementedError naming its ROADMAP.md item.
+the time limit and Ctrl-C. The factor slot L rides through compaction
+with every other leaf.
 """
 
 from __future__ import annotations
@@ -31,10 +38,36 @@ from .info import UNFINISHED
 from .settings import Settings
 from .solver import BellData, Mats, PBell
 
-_NOT_PORTED = {
-    "direct": "ROADMAP.md Queue 1 item 7 (BatchedSCS on the dense path)",
-    "indirect": "ROADMAP.md Queue 1 items 7 and 9 (dense batch, indirect strategy)",
-}
+
+def batch_memory_bytes(B, m, n, has_P, itemsize=4, lookback=10):
+    """(peak, steady) live-byte estimate for a dense B-problem batch
+    (scs_tpu batch.py:60-75). The peak is at setup: the problem data (A, P
+    equilibrated in place) plus the S / chol(S) / S^-1 transients of the
+    batched factorization; the steady state drops the transients but keeps
+    the factor L."""
+    N = n + m + 1
+    nP = n * n if has_P else 0
+    mats_b = m * n + nP + 4 * (m + n)
+    state_b = n * n + 2 * max(lookback, 1) * N + 8 * N
+    setup_transient = 3 * n * n
+    peak = B * itemsize * (mats_b + state_b + setup_transient)
+    steady = B * itemsize * (mats_b + state_b)
+    return peak, steady
+
+
+def recommend_chunks(B, m, n, has_P, itemsize=4, budget=None) -> int:
+    """Number of sequential sub-batches needed to fit setup in device
+    memory; `budget` defaults to 3/4 of the card's free memory right now
+    (`torch.cuda.mem_get_info`: without a card it raises, there is no
+    assumed capacity)."""
+    if budget is None:
+        budget = int(0.75 * torch.cuda.mem_get_info()[0])
+    peak, _ = batch_memory_bytes(B, m, n, has_P, itemsize)
+    chunks = max(1, -(-peak // budget))
+    p = 1  # round up to a power of two for even slicing
+    while p < chunks:
+        p *= 2
+    return int(min(p, B))
 
 
 def _gather(tree, idx):
@@ -47,19 +80,22 @@ def _gather(tree, idx):
 
 
 class BatchedSCS:
-    """Solve B same-shape sparse cone problems simultaneously.
+    """Solve B same-shape cone problems simultaneously.
 
     Parameters
     ----------
     data: dict with
-        A: list of B scipy sparse (m, n) matrices
-        P: list of B scipy sparse (n, n) matrices (full or upper triangle),
-           optional
+        A: (B, m, n) dense array or tensor, or a list of B matrices (dense
+           or scipy sparse; a sparse list stays sparse under "bell" and is
+           densified otherwise)
+        P: (B, n, n) dense FULL symmetric (or a list; under "bell" sparse,
+           full or upper triangle), optional
         b: (B, m), c: (B, n)
     cone: one cone dict shared by the batch.
 
-    Only solver_strategy="bell" is ported; a dense (B, m, n) A under it
-    raises ValueError as in scs_tpu.
+    The caller's A and P are never modified: the solver equilibrates its
+    own device copy in place. A dense (B, m, n) A under
+    solver_strategy="bell" raises ValueError as in scs_tpu.
     """
 
     # compaction ladder floor: never compact below this many problems
@@ -67,10 +103,23 @@ class BatchedSCS:
 
     def __init__(self, data, cone, **settings):
         settings.setdefault("verbose", False)
-        # scs_tpu's batched defaults (batch.py:311-344) that the bell path
-        # reads, kept so that one settings dict gives the same solve in
-        # either package
+        # scs_tpu's batched defaults (batch.py:311-344), kept so that one
+        # settings dict gives the same solve in either package. Direct
+        # solves apply the precomputed inverse: one batched matvec instead
+        # of B pairs of triangular solves.
+        settings.setdefault("direct_solver", "inverse")
+        # Refactorize between segments, not inside the chunk
         settings.setdefault("rescale_in_chunk", False)
+        # refinement doubles the per-iteration A traffic; zero/nonneg/box
+        # batches converge at eps 1e-4 without it. Tight tolerances and
+        # curved cones get the auto policy (-1).
+        eps_min = min(
+            float(settings.get("eps_abs", 1e-4)), float(settings.get("eps_rel", 1e-4))
+        )
+        settings.setdefault(
+            "lin_refine_steps",
+            -1 if (eps_min < 3e-5 or not ConeSpec.from_dict(cone).is_simple) else 0,
+        )
         settings.setdefault("check_interval", 50)
         settings.setdefault("batch_compact_interval", 1)
         A = data["A"]
@@ -83,10 +132,7 @@ class BatchedSCS:
             m, n = A[0].shape
         else:
             if isinstance(A, (list, tuple)):
-                A = np.stack([
-                    np.asarray(Ai.todense() if hasattr(Ai, "todense") else Ai)
-                    for Ai in A
-                ])
+                A = _stack_dense(A)
             if A.ndim != 3:
                 raise ValueError("Batched A must have shape (B, m, n)")
             B, m, n = A.shape
@@ -101,13 +147,11 @@ class BatchedSCS:
                     "list of scipy sparse matrices (the point of the "
                     "batched bell path is never densifying)"
                 )
-        else:
-            raise NotImplementedError(
-                f"solver_strategy={self.stg.solver_strategy!r} on a batch is "
-                f"not ported to scs_tpu_torch yet: "
-                f"{_NOT_PORTED[self.stg.solver_strategy]}; pass "
-                "solver_strategy='bell' with A as a list of sparse matrices"
-            )
+        elif sparse_list:
+            # non-bell strategies use the dense batched core
+            A = _stack_dense(A)
+        if isinstance(P, (list, tuple)) and self.stg.solver_strategy != "bell":
+            P = _stack_dense(P)
         if self.stg.phase_timing == "always":
             raise NotImplementedError(
                 "phase_timing='always' (the per-phase instrumented timers) "
@@ -125,21 +169,80 @@ class BatchedSCS:
 
         t0 = time.perf_counter()
         self.core = BatchedCore(m, n, self.has_P, spec, self.stg)
-        # host-side sparse preprocessing per problem (equilibration and
-        # block-ELL packing never materialize dense A), then one stacked
-        # upload; as in scs_tpu the upload counts in "equilibrate"
-        self.mats = self._build_bell_mats(A, P, data["b"], data["c"], spec)
-        t_prep = time.perf_counter() - t0
+        core = self.core
+
+        def lap(since):
+            core._sync()
+            return time.perf_counter() - since
+
+        if self.stg.solver_strategy == "bell":
+            # host-side sparse preprocessing per problem (equilibration and
+            # block-ELL packing never materialize dense A), then one stacked
+            # upload; as in scs_tpu the upload counts in "equilibrate"
+            self.mats = self._build_bell_mats(A, P, data["b"], data["c"], spec)
+            t_transfer = 0.0
+            t_prep = lap(t0)
+        else:
+            # upload, then everything on the device: one batched Ruiz
+            # equilibration scales the solver's own copy of (A, P) in place
+            A = self._own(A, (B, m, n))
+            P = self._own(P, (B, n, n)) if self.has_P else None
+            b = self._own(data["b"], (B, m))
+            c = self._own(data["c"], (B, n))
+            t_transfer = lap(t0)
+            t1 = time.perf_counter()
+            self.mats = self._build_dense_mats(A, P, b, c, spec)
+            del A, P
+            t_prep = lap(t1)
+        t2 = time.perf_counter()
+        # the factorization at the initial scale depends only on (A, P):
+        # cached for reset()/update(), so b/c sweeps and repeat solves never
+        # re-run the batched Cholesky (the empty slot under CG)
+        self._L = core._factorize(self.mats, core.initial_scale(B))
+        t_fact = lap(t2)
         t2 = time.perf_counter()
         self.reset()
-        t_g = time.perf_counter() - t2
+        t_g = lap(t2)
         self._setup_time = time.perf_counter() - t0
         self.setup_breakdown = {
-            "transfer": 0.0,
+            "transfer": t_transfer,
             "equilibrate": t_prep,
-            "factorize": 0.0,  # matrix-free CG: no factorization
+            "factorize": t_fact,
             "compute_g": t_g,
         }
+
+    def _own(self, a, shape):
+        """The solver's own tensor of `a` on its device in its dtype: always
+        a copy, never a view of the caller's array (the equilibration scales
+        it in place)."""
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(device=self._device, dtype=self._dtype, copy=True).reshape(shape)
+
+    def _build_dense_mats(self, A, P, b, c, spec):
+        """Batched dense Mats from the solver's own (A, P, b, c) tensors:
+        the on-device Ruiz equilibration (A and P scaled in place) or the
+        identity scaling (scs_tpu batch.py:123-160, prep_one under vmap)."""
+        from .normalize import ruiz_equilibrate_batched  # noqa: PLC0415
+
+        B, dtype, dev = self.B, self._dtype, self._device
+        norm_b = torch.linalg.vector_norm(b, dim=1)
+        norm_c = torch.linalg.vector_norm(c, dim=1)
+        if self.stg.normalize:
+            A, P, bh, ch, D, E, sc_b, sc_c, bl_h, bu_h = ruiz_equilibrate_batched(
+                A, P, b, c, spec
+            )
+        else:
+            bh, ch = b, c
+            D = torch.ones((B, self.m), dtype=dtype, device=dev)
+            E = torch.ones((B, self.n), dtype=dtype, device=dev)
+            sc_b = sc_c = torch.ones(B, dtype=dtype, device=dev)
+            bl_h = torch.as_tensor(spec.bl, dtype=dtype, device=dev).expand(B, -1).clone()
+            bu_h = torch.as_tensor(spec.bu, dtype=dtype, device=dev).expand(B, -1).clone()
+        return Mats(
+            bn=bh, cn=ch, bl=bl_h, bu=bu_h, D=D, E=E, sc_b=sc_b, sc_c=sc_c,
+            norm_b=norm_b, norm_c=norm_c, A=A, P=P,
+        )
 
     def _build_bell_mats(self, A_list, P_list, b, c, spec):
         """Batched block-ELL Mats for B sparse problems: per-problem host
@@ -242,14 +345,15 @@ class BatchedSCS:
 
     def reset(self):
         """Re-initialize all solver states (cold start): g at the initial
-        scale by CG, then fresh iterates."""
-        self._states = self.core.init_state(self.mats)
+        scale against the cached factorization (or by CG), then fresh
+        iterates."""
+        self._states = self.core.init_state(self.mats, L=self._L)
         self.core._sync()
 
     def update(self, b=None, c=None):
         """Update b and/or c for the whole batch, re-scaled with the stored
-        equilibration; the packs are reused and only g is recomputed
-        (scs_tpu BatchedSCS.update)."""
+        equilibration; the factor (or the packs) is reused and only g is
+        recomputed — no factorization runs (scs_tpu BatchedSCS.update)."""
         mats = self.mats
 
         def t(a, k):
@@ -351,9 +455,10 @@ class BatchedSCS:
             results[pos] = {"x": xi.copy(), "y": yi.copy(), "s": si.copy(), "info": info}
 
     def polish(self, results, sub_batch=32, eps_reg=1e-6, refine=3):
-        """Active-set polish (scs_tpu BatchedSCS.polish) runs for the dense
-        direct core only; the bell core is matrix-free CG, so — as in
-        scs_tpu — results come back unchanged. Returns (results,
+        """Active-set polish (scs_tpu BatchedSCS.polish, for the f32 dense
+        direct core). Not ported yet (ROADMAP.md Queue 1 item 13): results
+        come back unchanged with an all-False mask, which is also what
+        scs_tpu returns for the bell and indirect cores. Returns (results,
         polished_mask)."""
         return results, np.zeros(self.B, bool)
 
@@ -383,6 +488,8 @@ class BatchedSCS:
         pending = []  # (finalize pack, positions, mask, elapsed)
         # lockstep cost: sum over segments of (batch size x iterations run)
         self.device_prob_iters = 0
+        # batch sizes the solve ran at: B, then each compaction's bucket
+        self.bucket_ladder = [B]
         prev_maxit = 0
 
         def seg_len(cur):
@@ -444,6 +551,7 @@ class BatchedSCS:
                         states, mats, torch.as_tensor(idx, device=self._device)
                     )
                     positions = positions[idx]
+                    self.bucket_ladder.append(target)
         except KeyboardInterrupt:
             interrupted = True
             # finalize the in-flight state so partial results are returned
@@ -456,6 +564,13 @@ class BatchedSCS:
         return results
 
 
+def _stack_dense(mats):
+    """A list of dense or scipy sparse matrices as one (B, r, c) array."""
+    return np.stack([
+        np.asarray(M.todense() if hasattr(M, "todense") else M) for M in mats
+    ])
+
+
 def solve_batch(data, cone, **settings):
-    """One-shot batched solve over B same-shape sparse problems."""
+    """One-shot batched solve over B same-shape problems."""
     return BatchedSCS(data, cone, **settings).solve()

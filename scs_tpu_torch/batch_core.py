@@ -1,6 +1,8 @@
-"""Batched solver core: B same-shape problems under the bell strategy, in
-masked lockstep — the PyTorch form of what `jax.vmap(Core)` gives
-scs_tpu's BatchedSCS (scs_tpu/solver.py, scs_tpu/batch.py:162-241).
+"""Batched solver core: B same-shape problems in masked lockstep — the
+PyTorch form of what `jax.vmap(Core)` gives scs_tpu's BatchedSCS
+(scs_tpu/solver.py, scs_tpu/batch.py:162-241) — under the bell strategy
+(sparse problems, batched block-ELL SpMV) or the dense strategies ("direct"
+with a batched factor, "indirect" by batched CG) on a (B, m, n) batch.
 
 Every tensor of the state carries a leading batch axis B, and every
 per-problem decision is a (B,) mask:
@@ -17,9 +19,10 @@ per-problem decision is a (B,) mask:
     has its own).
 
 No operation mixes rows: every reduction is over the last axis, and the
-operator is the batched block-ELL SpMV (`ops.sparse.bell_spmv_batched`,
-the CUDA kernel on a card), so a row that computes 0/0 after it has
-finished cannot disturb another.
+operator is the batched block-ELL SpMV (`ops.sparse.bell_spmv_batched`) or
+the batched dense matvecs (`ops.dense.gemv_rows`/`gemv_cols`), each the CUDA
+kernel on a card, so a row that computes 0/0 after it has finished cannot
+disturb another.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from .cones import ConeSpec
 from .info import FAILED, UNFINISHED
 from .ops.projections import get_projector
+from .ops.dense import gemv_cols, gemv_rows
 from .ops.sparse import bell_spmv_batched, pad_to
 from .settings import Settings
 from .solver import ZERO_CONE_RY_FACTOR, Core, Diag, Mats, _no_tf32
@@ -80,8 +84,7 @@ class AAState(NamedTuple):
 
 
 class State(NamedTuple):
-    """scs_tpu's State with a leading batch axis, minus the direct
-    strategy's factor slot L (the bell strategy has none)."""
+    """scs_tpu's State with a leading batch axis."""
 
     w: torch.Tensor  # (B, N)
     u: torch.Tensor
@@ -90,6 +93,9 @@ class State(NamedTuple):
     v_sum: torch.Tensor
     avg_cnt: torch.Tensor  # (B,) iterations accumulated in the averages
     scale: torch.Tensor  # (B,)
+    # (B, n, n): each problem's Cholesky factor of S (direct, "cholesky")
+    # or S^-1 ("inverse"); the empty (B, 0, 0) slot under CG
+    L: torch.Tensor
     gx: torch.Tensor  # (B, n)
     gy: torch.Tensor  # (B, m)
     px_warm: torch.Tensor  # (B, n)
@@ -111,14 +117,20 @@ class State(NamedTuple):
 
 
 class BatchedCore:
-    """Solver core for B problems sharing (m, n, cone structure, settings)
-    under the bell strategy. Mats are solver.Mats with a leading batch
-    axis on every leaf (packs (B, nbr, w, bs, bs), cols (B, nbr, w))."""
+    """Solver core for B problems sharing (m, n, cone structure, settings).
+    Mats are solver.Mats with a leading batch axis on every leaf (packs
+    (B, nbr, w, bs, bs), cols (B, nbr, w); dense A (B, m, n), P (B, n, n))."""
 
     # shape-agnostic helpers of the single-problem core, reused as they are
     _sync = Core._sync
+    _init_strategy = Core._init_strategy
     _matvec_S = Core._matvec_S
+    _build_S = Core._build_S
+    _factorize = Core._factorize
+    _apply_factor = Core._apply_factor
+    _direct_solve = Core._direct_solve
     _lin_solve = Core._lin_solve
+    factorizations = 0  # batched factorizations run (tests count them)
     _step = Core._step
     _iter_body = Core._iter_body
     _status_from = Core._status_from  # (B,) leaves broadcast to a (B,) status
@@ -130,6 +142,7 @@ class BatchedCore:
         self.device = torch.device(stg.device)
         self.dtype = torch.float64 if stg.dtype == "float64" else torch.float32
         self.spec = spec
+        self._init_strategy(spec, stg)
         self.zero_mask = torch.as_tensor(spec.zero_row_mask(), device=self.device)
         self.eps_floor = 3e-7 if self.dtype == torch.float32 else 1e-14
         self._proj = get_projector(spec, self.dtype)
@@ -139,7 +152,8 @@ class BatchedCore:
         # and rescale_step applies it between segments, as in scs_tpu
         self.rescale_in_chunk = bool(stg.rescale_in_chunk)
         # batched CG iterations run (each one S-product for the whole
-        # batch, i.e. 2 or 3 SpMV launches), setup included; callers zero it
+        # batch, i.e. 2 or 3 operator launches), setup included; callers
+        # zero it
         self.cg_steps = 0
 
     def _ints(self, B, value):
@@ -152,24 +166,32 @@ class BatchedCore:
         return torch.where(self.zero_mask, ZERO_CONE_RY_FACTOR * base, base)
 
     def _Ax(self, mats: Mats, x):
+        if not self.use_bell:
+            return gemv_rows(mats.A, x)
         bell = mats.bell
         n_pad = bell.At_blocks.shape[1] * bell.A_blocks.shape[-1]
         y = bell_spmv_batched(bell.A_blocks, bell.A_cols, pad_to(x, n_pad))
         return y[:, : self.m]
 
     def _ATy(self, mats: Mats, y):
+        if not self.use_bell:
+            return gemv_cols(mats.A, y)
         bell = mats.bell
         m_pad = bell.A_blocks.shape[1] * bell.At_blocks.shape[-1]
         x = bell_spmv_batched(bell.At_blocks, bell.At_cols, pad_to(y, m_pad))
         return x[:, : self.n]
 
     def _Px(self, mats: Mats, x):
+        if not self.use_bell:
+            return gemv_rows(mats.P, x)
         pb = mats.pbell
         n_pad = pb.blocks.shape[1] * pb.blocks.shape[-1]
         return bell_spmv_batched(pb.blocks, pb.cols, pad_to(x, n_pad))[:, : self.n]
 
     def _diagS(self, mats: Mats, dy, scale):
         """diag(S) per problem; the scale is (B,) (see Core._diagS)."""
+        if not self.use_bell:
+            return Core._diagS(self, mats, dy, scale)
         bell = mats.bell
         s = _col(scale)
         diagS = (
@@ -226,19 +248,23 @@ class BatchedCore:
 
     # -- setup ----------------------------------------------------------------
 
-    def _compute_g(self, mats: Mats, scale, rows=None):
-        """g = solve(S, c - A' D_y b) and its y image, per problem."""
+    def _compute_g(self, mats: Mats, scale, L, rows=None):
+        """g = solve(S, c - A' D_y b) and its y image, per problem: by the
+        given factor L (direct) or by CG (on `rows` only, where given)."""
         dy = 1.0 / self._ry(scale)
         rhs = mats.cn - self._ATy(mats, dy * mats.bn)
-        tol = torch.clamp_min(self.eps_floor * _norm(rhs), self.stg.cg_tol_min * 10)
-        gx, _ = self._cg(mats, dy, rhs, torch.zeros_like(rhs), tol, scale, rows)
+        if self.indirect:
+            tol = torch.clamp_min(self.eps_floor * _norm(rhs), self.stg.cg_tol_min * 10)
+            gx, _ = self._cg(mats, dy, rhs, torch.zeros_like(rhs), tol, scale, rows)
+        else:
+            gx = self._direct_solve(mats, L, dy, rhs)
         gy = dy * (mats.bn + self._Ax(mats, gx))
         return gx, gy
 
     def initial_scale(self, B):
         return torch.full((B,), self.stg.scale, dtype=self.dtype, device=self.device)
 
-    def _fresh_state(self, gx, gy, scale):
+    def _fresh_state(self, L, gx, gy, scale):
         B, N = gx.shape[0], self.N
 
         def zeros(*shape):
@@ -272,6 +298,7 @@ class BatchedCore:
             v_sum=zeros(B, N),
             avg_cnt=zeros(B),
             scale=scale,
+            L=L,
             gx=gx,
             gy=gy,
             px_warm=zeros(B, self.n),
@@ -290,11 +317,15 @@ class BatchedCore:
             aa=aa,
         )
 
-    def init_state(self, mats: Mats):
-        """Cold-start states of the whole batch (setup: g by CG)."""
+    def init_state(self, mats: Mats, L=None):
+        """Cold-start states of the whole batch: the factorization at the
+        initial scale (direct; skipped when the caller passes its cached
+        factor L) and g."""
         scale = self.initial_scale(mats.bn.shape[0])
-        gx, gy = self._compute_g(mats, scale)
-        return self._fresh_state(gx, gy, scale)
+        if L is None:
+            L = self._factorize(mats, scale)
+        gx, gy = self._compute_g(mats, scale, L)
+        return self._fresh_state(L, gx, gy, scale)
 
     # -- one DR iteration -----------------------------------------------------
 
@@ -691,16 +722,35 @@ class BatchedCore:
         )
         return ratio, trigger
 
+    def _refactorize_rows(self, state: State, mats: Mats, new_scale, trigger):
+        """The factor slot after a rescale: rows that trigger get the
+        factorization at their new scale, the others keep theirs. Only the
+        triggered rows are factorized (a gathered sub-batch), so a rescale
+        costs setup work for the rows that need it and its S / factor
+        transients are that small."""
+        if self.indirect:
+            return state.L
+        idx = trigger.nonzero()[:, 0]
+        # _factorize reads only A, P and the scale
+        sub = mats._replace(
+            A=mats.A.index_select(0, idx),
+            P=mats.P.index_select(0, idx) if self.has_P else None,
+        )
+        L_sub = self._factorize(sub, new_scale.index_select(0, idx))
+        return state.L.index_copy(0, idx, L_sub)
+
     def _apply_rescale(self, state: State, mats: Mats, ratio, trigger):
-        """New scale and g for the rows that trigger; since_rescale + 1 for
-        the others. The setup CG runs only on the triggered rows."""
+        """New scale, factor and g for the rows that trigger;
+        since_rescale + 1 for the others. The setup work (factorization,
+        the setup CG) runs only on the triggered rows."""
         kept = state._replace(since_rescale=state.since_rescale + 1)
         if not bool(trigger.any()):
             return kept
         stg = self.stg
         n, m = self.n, self.m
         new_scale = torch.clamp(state.scale * ratio, stg.min_scale, stg.max_scale)
-        gx, gy = self._compute_g(mats, new_scale, rows=trigger)
+        L = self._refactorize_rows(state, mats, new_scale, trigger)
+        gx, gy = self._compute_g(mats, new_scale, L, rows=trigger)
         f = _col(new_scale / state.scale)
 
         def y_times_f(a):
@@ -712,6 +762,7 @@ class BatchedCore:
         B = trigger.shape[0]
         rescaled = state._replace(
             scale=new_scale,
+            L=L,
             gx=gx,
             gy=gy,
             v=v,
@@ -724,7 +775,8 @@ class BatchedCore:
             rescale_trigger=torch.zeros_like(trigger),
             aa=state.aa._replace(count=self._ints(B, -1), zeta_prev=w),
         )
-        return _select(trigger, rescaled, kept)
+        # L is row-selected already (_refactorize_rows)
+        return _select(trigger, rescaled, kept._replace(L=L))
 
     def rescale_step(self, state: State, mats: Mats):
         """Apply the rescale decision recorded by the last _check (the
@@ -770,12 +822,13 @@ class BatchedCore:
     def masked_chunk(self, state: State, mats: Mats, max_iters):
         """One chunk in which finished and iteration-capped rows stay
         frozen (scs_tpu batch.py:166-188). Without the in-chunk rescale,
-        g is loop-invariant and carried through as it was."""
+        the factor and g are loop-invariant and carried through as they
+        were (no select over the (B, n, n) factor)."""
         new = self._chunk(state, mats)
-        merged = _select(self.live(state, max_iters), new, state)
         if self.rescale_in_chunk:
-            return merged
-        return merged._replace(gx=state.gx, gy=state.gy)
+            return _select(self.live(state, max_iters), new, state)
+        new = new._replace(L=state.L, gx=state.gx, gy=state.gy)
+        return _select(self.live(state, max_iters), new, state)
 
     def run_seg(self, state: State, mats: Mats, max_iters, seg):
         """Up to `seg` masked chunks, while any row is live (one device

@@ -9,15 +9,18 @@ after `jax.tree.map(np.asarray, ...)`; this module itself imports no JAX.
 Field mapping for the single-problem core: vectors and float scalars
 become tensors on `device`; iteration counters, statuses and the
 averaging count become Python numbers (the port keeps its control flow on
-the host). scs_tpu fields the single core has no use for (dense A/P of the
-dense strategies, the batched path's deferred-rescale record) are dropped.
+the host). The operator comes across in whichever form scs_tpu holds it:
+the block-ELL packs (bell) or the dense A and P (direct, indirect), whose
+zero-size placeholders become None; the factor slot L is carried as it is.
+The batched path's deferred-rescale record, which the single core has no
+use for, is dropped.
 
 The batched path: `mats_from_numpy` takes a batched Mats as it is (every
 leaf keeps its leading B axis), and `batch_state_from_numpy` turns a
 batched scs_tpu State into batch_core.State, where every leaf — the int32
 counters, the bool rescale trigger and the deferred-rescale ratio
-included — is a tensor with a leading B axis. The factor slot L, empty
-under the bell strategy, is dropped.
+and the (B, n, n) factor slot L included — is a tensor with a leading B
+axis.
 """
 
 from __future__ import annotations
@@ -44,11 +47,16 @@ def _dtype_of(a):
 
 
 def mats_from_numpy(mats, device="cpu", dtype=None) -> Mats:
-    """scs_tpu Mats (numpy leaves, bell strategy) -> port Mats."""
+    """scs_tpu Mats (numpy leaves, single or batched, any strategy) ->
+    port Mats."""
     dtype = dtype or _dtype_of(mats.bn)
 
     def t(a):
         return _tensor(a, dtype, device)
+
+    def dense(a):
+        # scs_tpu marks an absent dense operand by a zero-size array
+        return None if a is None or np.asarray(a).size == 0 else t(a).contiguous()
 
     bell = mats.bell
     pbell = mats.pbell
@@ -63,7 +71,11 @@ def mats_from_numpy(mats, device="cpu", dtype=None) -> Mats:
         sc_c=t(mats.sc_c),
         norm_b=t(mats.norm_b),
         norm_c=t(mats.norm_c),
-        bell=BellData(*(t(getattr(bell, f)) for f in BellData._fields)),
+        A=dense(mats.A),
+        P=dense(mats.P),
+        bell=None
+        if bell is None
+        else BellData(*(t(getattr(bell, f)) for f in BellData._fields)),
         pbell=None
         if pbell is None
         else PBell(*(t(getattr(pbell, f)) for f in PBell._fields)),

@@ -2,8 +2,9 @@
 src/normalize.c + linsys/scs_matrix.c scaling.
 
 The host (numpy) functions of scs_tpu/normalize.py, unchanged, so both
-packages equilibrate identically. The on-device batched variant
-(scs_tpu's ruiz_equilibrate_jnp) arrives with the batched path.
+packages equilibrate identically, and `ruiz_equilibrate_batched`, the
+on-device counterpart of scs_tpu's vmapped ruiz_equilibrate_jnp for a dense
+(B, m, n) batch.
 
 Transform (self-consistent; derivation in solver.py docstring):
     A_hat = D A E            (D per-cone-block-uniform row scaling)
@@ -28,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .cones import ConeSpec
 
@@ -193,3 +195,76 @@ def ruiz_equilibrate_sparse(A, P, b, c, spec: ConeSpec, passes=NUM_RUIZ_PASSES):
         )
 
     return Ah, Ph, bh, ch, Scaling(D=D, E=E, sc_b=sc_b, sc_c=sc_c), spec_hat
+
+
+# ---------------------------------------------------------------------------
+# On-device equilibration of a dense batch — used by the batched dense path.
+# ---------------------------------------------------------------------------
+
+
+def _absmax(M, dim):
+    """max |M| along `dim` without a |M|-sized temporary."""
+    return torch.linalg.vector_norm(M, ord=float("inf"), dim=dim)
+
+
+def ruiz_equilibrate_batched(A, P, b, c, spec: ConeSpec, passes=NUM_RUIZ_PASSES):
+    """Ruiz equilibration of B dense problems at once, on the tensors'
+    device: the math of `ruiz_equilibrate` per problem (scs_tpu's
+    ruiz_equilibrate_jnp under jax.vmap).
+
+    A: (B, m, n), P: (B, n, n) or None, b: (B, m), c: (B, n). A and P are
+    SCALED IN PLACE (the counterpart of scs_tpu donating them into its
+    equilibration program: no second copy of the batch is ever live), so
+    pass tensors the caller does not need again. Returns (A, P, b_hat,
+    c_hat, D, E, sc_b, sc_c, bl_hat, bu_hat) with D (B, m), E (B, n), sc_b
+    and sc_c (B,), and the box bounds (B, bsize-1) (zero-length without a
+    box cone).
+    """
+    B, m, n = A.shape
+    dtype, dev = A.dtype, A.device
+    ids_np, nblocks = row_block_ids(spec)
+    D = torch.ones((B, m), dtype=dtype, device=dev)
+    E = torch.ones((B, n), dtype=dtype, device=dev)
+    if nblocks > 0:
+        in_block = torch.as_tensor(ids_np >= 0, device=dev)
+        idx = torch.as_tensor(np.clip(ids_np, 0, None), device=dev)
+        idx_b = idx.expand(B, m)
+
+    for _ in range(passes):
+        r = _absmax(A, 2)
+        if nblocks > 0:
+            # uniformize within cone blocks (max over the block)
+            seg_in = torch.where(in_block, r, -torch.inf)
+            blk_max = torch.full((B, nblocks), -torch.inf, dtype=dtype, device=dev)
+            blk_max = blk_max.scatter_reduce(1, idx_b, seg_in, reduce="amax")
+            r = torch.where(in_block, blk_max.gather(1, idx_b), r)
+        r = torch.where(r <= MIN_SCALE, 1.0, r).sqrt()
+        cn = _absmax(A, 1)
+        if P is not None:
+            cn = torch.maximum(cn, _absmax(P, 1))
+        cn = torch.where(cn <= MIN_SCALE, 1.0, cn).sqrt()
+        A.div_(r[:, :, None]).div_(cn[:, None, :])
+        if P is not None:
+            P.div_(cn[:, :, None]).div_(cn[:, None, :])
+        D = D / r
+        E = E / cn
+
+    bh = D * b
+    ch = E * c
+    sc_b = 1.0 / torch.clamp_min(torch.linalg.vector_norm(bh, dim=1), MIN_SCALE)
+    sc_c = 1.0 / torch.clamp_min(torch.linalg.vector_norm(ch, dim=1), MIN_SCALE)
+    bh = bh * sc_b[:, None]
+    ch = ch * sc_c[:, None]
+    if P is not None:
+        P.mul_((sc_c / sc_b)[:, None, None])
+
+    if spec.bsize > 0:
+        off = spec.z + spec.l
+        d_t = D[:, off : off + 1]
+        d_s = D[:, off + 1 : off + spec.bsize]
+        bu_hat = torch.as_tensor(spec.bu, dtype=dtype, device=dev) * d_s / d_t
+        bl_hat = torch.as_tensor(spec.bl, dtype=dtype, device=dev) * d_s / d_t
+    else:
+        bu_hat = torch.zeros((B, 0), dtype=dtype, device=dev)
+        bl_hat = torch.zeros((B, 0), dtype=dtype, device=dev)
+    return A, P, bh, ch, D, E, sc_b, sc_c, bl_hat, bu_hat

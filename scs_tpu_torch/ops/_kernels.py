@@ -43,9 +43,17 @@ _SYMBOLS = {
         "bell_spmv_batched_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
         "bell_spmv_batched_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     },
+    "gemv": {
+        # (M, x, y, batch, rows, cols, stream)
+        "gemv_rows_f32": [_VP, _VP, _VP, _I, _I, _I, _VP],
+        "gemv_rows_f64": [_VP, _VP, _VP, _I, _I, _I, _VP],
+        # (M, u, y, scratch, batch, rows, cols, splits, stream)
+        "gemv_cols_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        "gemv_cols_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    },
 }
 
-_LIBS = {}  # kernel name -> loaded ctypes.CDLL (one per process)
+_LIBS = {}  # (kernel name, source or None) -> loaded ctypes.CDLL
 build_log = {}  # kernel name -> nvcc output of the build (ptxas -v report)
 
 
@@ -63,9 +71,11 @@ def _nvcc() -> str:
     )
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu into a shared library; return its path."""
-    src = os.path.join(_CSRC, name + ".cu")
+def build(name: str, src: str | None = None) -> str:
+    """Compile csrc/<name>.cu (or another source `src` with the same entry
+    points, e.g. an earlier version to time against) into a shared library;
+    return its path."""
+    src = src or os.path.join(_CSRC, name + ".cu")
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
     so = os.path.join(_BUILD, f"lib{name}_{digest.hexdigest()[:16]}.so")
@@ -94,14 +104,25 @@ def build(name: str) -> str:
     return so
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load kernel `name`, with its C signatures."""
-    lib = _LIBS.get(name)
+def build_all() -> dict:
+    """Build every kernel source at once, one nvcc process per source, all
+    started together; returns {name: library path}."""
+    from concurrent.futures import ThreadPoolExecutor  # noqa: PLC0415
+
+    names = sorted(_SYMBOLS)
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        return dict(zip(names, ex.map(build, names)))
+
+
+def load(name: str, src: str | None = None) -> ctypes.CDLL:
+    """Build (if needed) and load kernel `name`, with its C signatures;
+    `src` as in build()."""
+    lib = _LIBS.get((name, src))
     if lib is None:
-        lib = ctypes.CDLL(build(name))
+        lib = ctypes.CDLL(build(name, src))
         for sym, argtypes in _SYMBOLS[name].items():
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[(name, src)] = lib
     return lib

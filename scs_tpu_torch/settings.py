@@ -19,9 +19,8 @@ Extras with no reference analogue are grouped at the bottom of the
 dataclass: device and dtype control, linear-solver strategy, CG knobs,
 and the check interval. The field set is scs_tpu's (scs_tpu/settings.py)
 plus `device`, so one settings dict works with either package; keys that
-serve only the JAX package's TPU runtime (host_poll_chunks, the batch and
-rescale placement keys) are accepted and validated but have no effect
-here.
+serve only the JAX package's TPU runtime (host_poll_chunks) are accepted
+and validated but have no effect here.
 """
 
 from __future__ import annotations
@@ -106,15 +105,17 @@ class Settings:
     # CPU (reference parity: the reference core is f64 unless built with
     # -DSFLOAT).
     dtype: str = "auto"
-    # Linear-system strategy: "auto" | "direct" | "indirect" | "bell"
-    # (matrix-free CG with the block-ELL SpMV kernel — the only strategy
-    # this package runs so far; the others raise NotImplementedError).
+    # Linear-system strategy: "auto" | "direct" (dense Cholesky) |
+    # "indirect" (matrix-free CG on dense A) | "bell" (matrix-free CG with
+    # the block-ELL SpMV kernel). "auto" is resolved by the API (direct for
+    # n <= 4096).
     solver_strategy: str = "auto"
     # Tile size for the block-ELL pack (bell strategy); one CUDA thread
     # block of bell_block_size threads per block-row, so at most 1024.
     bell_block_size: int = 128
-    # Direct-strategy linear solve ("cholesky" | "inverse"); validated for
-    # settings-dict compatibility, used once the direct strategy lands.
+    # Direct-strategy linear solve: "cholesky" applies the factor by two
+    # triangular solves; "inverse" precomputes S^-1 and applies it as one
+    # dense matvec (BatchedSCS's default).
     direct_solver: str = "cholesky"
     # CG controls (reference: linsys/cpu/indirect, tolerance tightened
     # per-iteration at rate cg_rate).
@@ -139,13 +140,14 @@ class Settings:
     # memory after a rejection.
     aa_safeguard_factor: float = 2.0
     aa_reset_on_reject: bool = False
-    # JAX-package keys for the batched path and for where the rescale
-    # runs; accepted, no effect on a single solve here.
+    # Batched path: retirement compaction and its segment length, and
+    # whether a rescale refactorizes inside the chunk or between segments
+    # (BatchedSCS sets its own defaults); no effect on a single solve.
     batch_compaction: bool = True
     batch_compact_interval: int = 4
     rescale_in_chunk: bool = True
-    # Direct-strategy refinement passes (-1 = auto); accepted for
-    # settings-dict compatibility, unused by the bell strategy.
+    # Direct-strategy iterative-refinement passes (-1 = auto: 1 in f32,
+    # 2 on curved cones, 0 in f64); unused under CG.
     lin_refine_steps: int = -1
     # Adaptive-scale update guards (reference core: scale updated when the
     # primal/dual residual ratio drifts).

@@ -1,7 +1,16 @@
 """ADMM / Douglas-Rachford solver loop on the homogeneous self-dual embedding,
-in PyTorch — the port of scs_tpu/solver.py for the "bell" strategy
-(matrix-free Jacobi-preconditioned CG whose every S·x product is two or
-three block-ELL SpMVs, csrc/bell_spmv.cu on CUDA).
+in PyTorch — the port of scs_tpu/solver.py. The linear projection runs
+under one of three strategies:
+
+  * "direct": a cached dense Cholesky factor of S = rho_x*I + P + A' D_y A,
+    applied by two triangular solves (direct_solver="cholesky") or, with
+    the factor slot holding S^-1, by one dense matvec ("inverse");
+  * "indirect": matrix-free Jacobi-preconditioned CG on dense A;
+  * "bell": the same CG with every S·x product as two or three block-ELL
+    SpMVs (csrc/bell_spmv.cu on CUDA).
+
+Every dense matvec of the first two (A x, A' y, P x, S^-1 r) goes through
+ops/dense.py — the hand-written kernels of csrc/gemv.cu on CUDA.
 
 The math is scs_tpu's, step for step (see the scs_tpu/solver.py docstring
 for the derivation). What changes is where the control flow runs: JAX
@@ -32,6 +41,7 @@ import torch
 from .cones import ConeSpec
 from .info import FAILED, INFEASIBLE, SOLVED, UNBOUNDED, UNFINISHED
 from .ops.projections import get_projector
+from .ops.dense import gemv_cols, gemv_rows
 from .ops.sparse import bell_spmv, pad_to
 from .settings import Settings
 
@@ -78,9 +88,10 @@ class PBell(NamedTuple):
 
 
 class Mats(NamedTuple):
-    """Problem data (normalized). scs_tpu's Mats also carries dense A and
-    P for its dense strategies; under the bell strategy those are empty
-    and are left out here."""
+    """Problem data (normalized). The operator is either the block-ELL
+    packs (bell strategy: `bell`, `pbell`) or the dense `A`, `P` (direct and
+    indirect strategies); the other pair is None, where scs_tpu keeps
+    zero-size arrays."""
 
     bn: torch.Tensor  # (m,)
     cn: torch.Tensor  # (n,)
@@ -93,8 +104,10 @@ class Mats(NamedTuple):
     sc_c: torch.Tensor  # scalar
     norm_b: torch.Tensor  # ||b|| original
     norm_c: torch.Tensor  # ||c|| original
-    bell: BellData
-    pbell: Optional[PBell] = None  # block-ELL pack of P (has_P only)
+    bell: Optional[BellData] = None  # block-ELL pack (bell strategy only)
+    pbell: Optional[PBell] = None  # block-ELL pack of P (bell + has_P only)
+    A: Optional[torch.Tensor] = None  # (m, n) dense (direct, indirect)
+    P: Optional[torch.Tensor] = None  # (n, n) dense, has_P only
 
 
 class AAState(NamedTuple):
@@ -156,7 +169,9 @@ class State(NamedTuple):
     v_sum: torch.Tensor  # (N,)
     avg_cnt: float  # iterations accumulated
     scale: torch.Tensor  # current DR scale (dynamic under adaptive_scale)
-    L: torch.Tensor  # factor slot of the direct strategy: (0, 0) here
+    # (n, n) Cholesky factor of S (direct, "cholesky"), S^-1 itself
+    # ("inverse"), or the empty (0, 0) slot (indirect, bell)
+    L: torch.Tensor
     gx: torch.Tensor  # (n,)
     gy: torch.Tensor  # (m,)
     px_warm: torch.Tensor  # (n,) CG warm start
@@ -176,21 +191,17 @@ class State(NamedTuple):
 
 
 class Core:
-    """Solver core for one (m, n, cone-structure, settings) problem under
-    the bell strategy, on the device named by stg.device."""
+    """Solver core for one (m, n, cone-structure, settings) problem, on
+    the device named by stg.device."""
 
     def __init__(self, m, n, has_P, spec: ConeSpec, stg: Settings):
-        if stg.solver_strategy != "bell":
-            raise NotImplementedError(
-                f"solver_strategy={stg.solver_strategy!r} is not ported to "
-                "scs_tpu_torch yet (ROADMAP.md Queue 1 items 5 and 9)"
-            )
         self.m, self.n, self.has_P = m, n, has_P
         self.N = n + m + 1
         self.stg = stg
         self.device = torch.device(stg.device)
         self.dtype = torch.float64 if stg.dtype == "float64" else torch.float32
         self.spec = spec
+        self._init_strategy(spec, stg)
         self.zero_mask = torch.as_tensor(spec.zero_row_mask(), device=self.device)
         # dtype-aware CG tolerance floor: in f32 a tolerance below
         # ~3e-7*||rhs|| is unreachable (CG stagnates at its roundoff
@@ -201,6 +212,41 @@ class Core:
         self.lookback = int(stg.acceleration_lookback)
         self.interval = int(stg.acceleration_interval)
         self._phase_cache = None
+
+    def _init_strategy(self, spec: ConeSpec, stg: Settings):
+        """Strategy flags and the refinement policy (scs_tpu
+        solver.py:243-282); shared with the batched core."""
+        if stg.solver_strategy not in ("direct", "indirect", "bell"):
+            raise ValueError(
+                f"solver_strategy must be resolved to 'direct', 'indirect' "
+                f"or 'bell' before a core is built (got {stg.solver_strategy!r})"
+            )
+        self.strategy = stg.solver_strategy
+        self.indirect = self.strategy in ("indirect", "bell")
+        self.use_bell = self.strategy == "bell"
+        # "inverse" applies S^-1 as one dense matvec (one gemv_rows launch)
+        # instead of two triangular solves
+        self.use_inverse = not self.indirect and stg.direct_solver == "inverse"
+        f32 = self.dtype == torch.float32
+        # scs_tpu's high-accuracy mode: f32 tolerances below what a plain
+        # f32 matvec can measure switch the residuals to compensated
+        # double-f32 arithmetic (its ops/df32.py), which is not ported
+        if f32 and min(stg.eps_abs, stg.eps_rel) < 3e-5 and not self.use_bell:
+            raise NotImplementedError(
+                "float32 with eps below 3e-5 on the dense path needs the "
+                "compensated double-f32 operators (scs_tpu's hi_acc mode, "
+                "ops/df32.py), not ported to scs_tpu_torch yet: ROADMAP.md "
+                "Queue 1 item 13; use dtype='float64' for tight tolerances"
+            )
+        # Direct-path iterative refinement (auto: 1 pass for f32 — the
+        # factor-solve error otherwise floors the DR residual; 2 on curved
+        # cones; 0 for f64 and for CG)
+        if stg.lin_refine_steps >= 0:
+            self.refine_steps = int(stg.lin_refine_steps)
+        elif f32 and not self.indirect:
+            self.refine_steps = 1 if spec.is_simple else 2
+        else:
+            self.refine_steps = 0
 
     def _scalar(self, v):
         return torch.tensor(v, dtype=self.dtype, device=self.device)
@@ -216,20 +262,27 @@ class Core:
         return torch.where(self.zero_mask, ZERO_CONE_RY_FACTOR * base, base)
 
     def _Ax(self, mats: Mats, x):
-        """A @ x by block-ELL SpMV."""
+        """A @ x — the dense row-reduction kernel or block-ELL SpMV."""
+        if not self.use_bell:
+            return gemv_rows(mats.A, x)
         bell = mats.bell
         n_pad = bell.At_blocks.shape[0] * bell.A_blocks.shape[-1]
         return bell_spmv(bell.A_blocks, bell.A_cols, pad_to(x, n_pad))[: self.m]
 
     def _ATy(self, mats: Mats, y):
-        """A^T @ y by block-ELL SpMV of the pre-transposed pack."""
+        """A^T @ y — the dense column-reduction kernel on the stored A (no
+        stored transpose), or block-ELL SpMV of the pre-transposed pack."""
+        if not self.use_bell:
+            return gemv_cols(mats.A, y)
         bell = mats.bell
         m_pad = bell.A_blocks.shape[0] * bell.At_blocks.shape[-1]
         return bell_spmv(bell.At_blocks, bell.At_cols, pad_to(y, m_pad))[: self.n]
 
     def _Px(self, mats: Mats, x):
-        """P @ x by block-ELL SpMV (P is symmetric: one pack serves both
-        orientations)."""
+        """P @ x — dense, or block-ELL SpMV (P is symmetric: one pack
+        serves both orientations)."""
+        if not self.use_bell:
+            return gemv_rows(mats.P, x)
         pb = mats.pbell
         n_pad = pb.blocks.shape[0] * pb.blocks.shape[-1]
         return bell_spmv(pb.blocks, pb.cols, pad_to(x, n_pad))[: self.n]
@@ -240,11 +293,29 @@ class Core:
             out = out + self._Px(mats, x)
         return out
 
+    def _build_S(self, mats: Mats, dy):
+        """S = rho_x*I + P + A' D_y A as one full-f32 (TF32 off) library
+        product; a plain large product outside any kernel, as in scs_tpu.
+        Written over the last two axes, so the batched core shares it."""
+        A = mats.A
+        with _no_tf32():
+            S = A.mT @ (A * dy[..., :, None])
+        S.diagonal(dim1=-2, dim2=-1).add_(self.stg.rho_x)
+        if self.has_P:
+            S += mats.P
+        return S
+
     def _diagS(self, mats: Mats, dy, scale):
-        """diag(S) for the Jacobi preconditioner. dy takes exactly two
-        values (see _ry): scale on ordinary rows, scale/ZERO_CONE_RY_FACTOR
-        on zero-cone rows — so the weighted column sums reduce to two
-        precomputed vectors."""
+        """diag(S) for the Jacobi preconditioner. Dense A: the weighted
+        column sums of A*A. Bell: dy takes exactly two values (see _ry),
+        scale on ordinary rows and scale/ZERO_CONE_RY_FACTOR on zero-cone
+        rows, so the sums reduce to two precomputed vectors."""
+        if not self.use_bell:
+            A = mats.A
+            diagS = self.stg.rho_x + (A * A * dy[..., :, None]).sum(-2)
+            if self.has_P:
+                diagS = diagS + mats.P.diagonal(dim1=-2, dim2=-1)
+            return diagS
         bell = mats.bell
         diagS = (
             self.stg.rho_x
@@ -292,32 +363,90 @@ class Core:
             k += 1
         return x, k
 
+    def _apply_factor(self, L, r):
+        """S^-1 r from the factor slot: one dense matvec when L holds S^-1
+        ("inverse"), two triangular solves when it holds the Cholesky
+        factor."""
+        if self.use_inverse:
+            return gemv_rows(L, r)
+        return torch.cholesky_solve(r[..., None], L)[..., 0]
+
+    def _direct_solve(self, mats: Mats, L, dy, rhs):
+        """S^-1 rhs by the factor, then refine_steps passes of iterative
+        refinement: an f32 factor solve carries an O(cond(S)*eps) error that
+        floors the DR residual, and one pass restores ~roundoff accuracy
+        for one extra S matvec and factor apply."""
+        x = self._apply_factor(L, rhs)
+        for _ in range(self.refine_steps):
+            x = x + self._apply_factor(L, rhs - self._matvec_S(mats, dy, x))
+        return x
+
     def _lin_solve(self, state: State, mats: Mats, rhs, tol):
-        """Solve S x = rhs by CG, warm-started at the previous solution.
-        Returns (x, cg_iters)."""
+        """Solve S x = rhs with the active strategy: CG warm-started at the
+        previous solution, or the cached factor. Returns (x, cg_iters)."""
         dy = 1.0 / self._ry(state.scale)
-        return self._cg(mats, dy, rhs, state.px_warm, tol, state.scale)
+        if self.indirect:
+            return self._cg(mats, dy, rhs, state.px_warm, tol, state.scale)
+        # no CG iterations: a zero of cg_iters' own kind (int, or per row)
+        return self._direct_solve(mats, state.L, dy, rhs), 0 * state.cg_iters
 
     # -- setup ------------------------------------------------------------
 
+    def _factorize(self, mats: Mats, scale):
+        """Numeric factorization for the given scale — the expensive,
+        (b, c)-independent half of setup, reused across solves and updates.
+        Cholesky and the triangular solves are library routines, as in
+        scs_tpu. A factorization that fails (S not positive definite in the
+        working precision) fills the slot with NaN, as jnp.linalg.cholesky
+        does, and the status logic reports the solve as failed. Written over
+        the last two axes, so the batched core shares it; counted in
+        `self.factorizations`."""
+        if self.indirect:
+            return torch.zeros(scale.shape + (0, 0), dtype=self.dtype, device=self.device)
+        self.factorizations += 1
+        dy = 1.0 / self._ry(scale)
+        S = self._build_S(mats, dy)
+        L, info = torch.linalg.cholesky_ex(S)
+        del S
+        if self.use_inverse:
+            # L := S^-1 (SPD, equilibrated; one-time n^3, then matvecs)
+            eye = torch.eye(self.n, dtype=self.dtype, device=self.device)
+            with _no_tf32():
+                L = torch.cholesky_solve(eye.expand_as(L), L)
+            if not L.is_contiguous():
+                # the library may hand the solve back column-major; S^-1 is
+                # symmetric, so its transposed view is the same matrix (to
+                # rounding) in the row-major layout gemv_rows reads
+                L = L.mT if L.mT.is_contiguous() else L.contiguous()
+        return L.masked_fill_((info != 0)[..., None, None], math.nan)
+
+    factorizations = 0  # factorizations run by this core (tests count them)
+
     def _compute_g(self, mats: Mats, scale, L):
         """g = solve(S, c - A' D_y b) and its y image — the (b, c)-
-        dependent half of setup, recomputed on update(b, c)."""
+        dependent half of setup, recomputed on update(b, c) while the factor
+        L is reused."""
         dy = 1.0 / self._ry(scale)
         rhs = mats.cn - self._ATy(mats, dy * mats.bn)
-        tol = torch.clamp_min(self.eps_floor * _norm(rhs), self.stg.cg_tol_min * 10)
-        gx, _ = self._cg(
-            mats, dy, rhs,
-            torch.zeros(self.n, dtype=self.dtype, device=self.device),
-            tol, scale,
-        )
+        if self.indirect:
+            tol = torch.clamp_min(self.eps_floor * _norm(rhs), self.stg.cg_tol_min * 10)
+            gx, _ = self._cg(
+                mats, dy, rhs,
+                torch.zeros(self.n, dtype=self.dtype, device=self.device),
+                tol, scale,
+            )
+        else:
+            # g enters every iterate via the tau update, so its solve error
+            # floors the achievable residual: refined like the per-
+            # iteration solves
+            gx = self._direct_solve(mats, L, dy, rhs)
         gy = dy * (mats.bn + self._Ax(mats, gx))
         return gx, gy
 
     def _setup(self, mats: Mats, scale):
-        """Setup for the given scale: no factorization under CG (L stays
-        the empty (0, 0) slot), then g."""
-        L = torch.zeros((0, 0), dtype=self.dtype, device=self.device)
+        """Factorize (direct; the empty slot under CG) and compute g for
+        the given scale."""
+        L = self._factorize(mats, scale)
         gx, gy = self._compute_g(mats, scale, L)
         return L, gx, gy
 
@@ -383,8 +512,8 @@ class Core:
         return self.with_warm(self._init_pure(mats), warm_u, warm_v)
 
     def init_from_factor(self, mats: Mats, L):
-        """Fresh state reusing the setup that does not depend on (b, c) —
-        the update(b, c) path: only g is recomputed."""
+        """Fresh state reusing the factorization L, which does not depend
+        on (b, c) — the update(b, c) path: only g is recomputed."""
         scale = self._scalar(self.stg.scale)
         gx, gy = self._compute_g(mats, scale, L)
         return self._fresh_state(L, gx, gy, scale)

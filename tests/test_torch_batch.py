@@ -437,12 +437,16 @@ def test_dense_input_under_bell_raises_same_valueerror():
     assert msgs[0] == msgs[1]
 
 
-@pytest.mark.parametrize("strategy,item", [("direct", "item 7"), ("indirect", "items 7 and 9"),
-                                           ("auto", "item 7")])
-def test_unported_strategies_raise(strategy, item):
+@pytest.mark.parametrize("kw,item", [
+    (dict(solver_strategy="bell", phase_timing="always"), "item 6"),
+    (dict(solver_strategy="auto", phase_timing="always"), "item 6"),  # auto: direct
+    # f32 below eps 3e-5 on a dense batch: scs_tpu's compensated hi_acc mode
+    (dict(solver_strategy="direct", dtype="float32", eps_abs=1e-6, eps_rel=1e-6), "item 13"),
+])
+def test_unported_strategies_raise(kw, item):
     data, _ = _gen_sparse_batch(2, M, N, seed=1)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        st.BatchedSCS(data, {"l": M}, solver_strategy=strategy, verbose=False)
+        st.BatchedSCS(data, {"l": M}, verbose=False, **kw)
 
 
 def test_convert_batch_state_types(pairs):
@@ -485,3 +489,312 @@ def test_chip_smoke_batch_generator_matches_bench_cli(monkeypatch):
 
 def test_package_exports_batched_api():
     assert st.BatchedSCS is tb.BatchedSCS and st.solve_batch is tb.solve_batch
+
+
+# -- (j) the dense batched path -------------------------------------------------
+#
+# A dense (B, m, n) batch under "direct" (the batched default
+# direct_solver="inverse", and "cholesky") and "indirect", against scs_tpu's
+# BatchedSCS, f64. acceleration_regularization=1e-4 keeps type-I AA from
+# amplifying last-bit differences (see tests/test_torch_api.py); the
+# indirect case also runs CG to its floor. Tolerances as above: data to
+# 1e-12 (the same operations in the same order), states to rtol 1e-10.
+# What was found: from a cold start a 50-iteration chunk (five AA trials)
+# carries summation-order noise to ~1e-9 in w on these batches too, so the
+# chunks compared from the first iterations are 10 long (one trial), and
+# the default 50 is compared from iteration 100 on, where it holds 1e-10.
+
+DM, DN = 40, 30
+DENSE_BASE = dict(dtype="float64", verbose=False, eps_abs=1e-6, eps_rel=1e-6,
+                  acceleration_regularization=1e-4)
+CK10 = dict(DENSE_BASE, check_interval=10)
+DENSE_CASES = {
+    "qp_inverse": (True, dict(CK10, solver_strategy="direct")),
+    "qp_inverse_ck50": (True, dict(DENSE_BASE, solver_strategy="direct")),
+    "qp_cholesky": (True, dict(CK10, solver_strategy="direct", direct_solver="cholesky")),
+    "lp_inverse": (False, dict(CK10, solver_strategy="direct")),
+    "qp_indirect": (True, dict(CK10, solver_strategy="indirect", cg_tol_factor=1e-12)),
+}
+
+
+def _gen_dense_batch(B, m, n, seed=0, with_P=True):
+    """B dense feasible problems over the nonnegative cone (the bench
+    recipe, scs_tpu.bench_cli.gen_batch, at a small size)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(B, m, n) / np.sqrt(m)
+    z = rng.randn(B, m)
+    y = np.maximum(z, 0)
+    x = rng.randn(B, n)
+    data = {"A": A, "b": np.einsum("bmn,bn->bm", A, x) + (y - z)}
+    c = -np.einsum("bmn,bm->bn", A, y)
+    if with_P:
+        G = rng.randn(B, n, 5)
+        data["P"] = 0.1 * G @ G.transpose(0, 2, 1) + 1e-3 * np.eye(n)
+        c = c - np.einsum("bij,bj->bi", data["P"], x)
+    data["c"] = c
+    return data
+
+
+def _copy(data):
+    return {k: v.copy() for k, v in data.items()}
+
+
+@pytest.fixture(scope="module")
+def dense_pairs():
+    out = {}
+    for name, (with_P, kw) in DENSE_CASES.items():
+        data = _gen_dense_batch(4, DM, DN, seed=5, with_P=with_P)
+        sj = jb.BatchedSCS(_copy(data), {"l": DM}, **kw)
+        out[name] = {
+            "data": data,
+            "sj": sj,
+            "st": st.BatchedSCS(_copy(data), {"l": DM}, **kw),
+            "mats_t": mats_from_numpy(_np(sj.mats)),
+            "vchunk": jax.jit(jax.vmap(sj.core._chunk)),
+        }
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_dense_prep_and_setup_match_scs_tpu(dense_pairs, case):
+    p = dense_pairs[case]
+    mj, mt = _np(p["sj"].mats), p["st"].mats
+    assert mt.bell is None and mt.pbell is None
+    assert mt.A.is_contiguous() and tuple(mt.A.shape) == (4, DM, DN)
+    assert (mt.P is None) == (not DENSE_CASES[case][0])
+    for f in ("A", "P", "bn", "cn", "D", "E", "sc_b", "sc_c", "norm_b", "norm_c", "bl", "bu"):
+        a = getattr(mt, f)
+        if a is None:
+            continue
+        assert tuple(a.shape) == getattr(mj, f).shape, f
+        np.testing.assert_allclose(a.numpy(), getattr(mj, f), rtol=1e-12, err_msg=f)
+    core_t, core_j = p["st"].core, p["sj"].core
+    assert (core_t.use_inverse, core_t.indirect, core_t.refine_steps, core_t.rescale_in_chunk) == (
+        core_j.use_inverse, core_j.indirect, core_j.refine_steps, core_j.rescale_in_chunk)
+    s0j, s0t = p["sj"]._states, p["st"]._states
+    assert tuple(s0t.L.shape) == np.asarray(s0j.L).shape
+    assert s0t.L is p["st"]._L  # the cached factor, not a copy
+    for i in range(4):
+        _close(s0t.L[i].numpy(), np.asarray(s0j.L)[i], err_msg=f"L[{i}]")
+        _close(s0t.gx[i].numpy(), np.asarray(s0j.gx)[i], err_msg=f"gx[{i}]")
+        _close(s0t.gy[i].numpy(), np.asarray(s0j.gy)[i], err_msg=f"gy[{i}]")
+    sb = p["st"].setup_breakdown
+    assert set(sb) == set(p["sj"].setup_breakdown) and all(v >= 0 for v in sb.values())
+    assert (sb["factorize"] > 0) and (sb["transfer"] > 0)
+
+
+def _assert_dense_states_match(st_t, st_j, N_):
+    _assert_states_match(st_t, st_j, N_)
+    for i in range(st_t.w.shape[0]):
+        _close(st_t.L[i].numpy(), np.asarray(st_j.L)[i], err_msg=f"L[{i}]")
+
+
+@pytest.mark.parametrize("case,chunks_before", [
+    ("qp_inverse", 0), ("qp_inverse_ck50", 2), ("qp_cholesky", 0),
+    # the LP from its second chunk on: in its cold-start chunk the
+    # unboundedness ratio, a quotient by a small -c'x, is off by 1.8e-10
+    ("lp_inverse", 1), ("lp_inverse", 5),
+    ("qp_indirect", 0),
+])
+def test_dense_batched_chunk_matches_vmap(dense_pairs, case, chunks_before):
+    p = dense_pairs[case]
+    sj = p["sj"]
+    state = sj._states
+    for _ in range(chunks_before):
+        state = p["vchunk"](state, sj.mats)
+    out_j = p["vchunk"](state, sj.mats)
+    out_t = p["st"].core._chunk(batch_state_from_numpy(_np(state)), p["mats_t"])
+    _assert_dense_states_match(out_t, out_j, sj.core.N)
+    assert np.all(np.asarray(out_j.aa.aa_iter) > np.asarray(state.aa.aa_iter))  # AA trials ran
+
+
+@pytest.mark.parametrize("case", ["qp_inverse", "qp_cholesky"])
+def test_dense_rescale_step_refactorizes_triggered_rows(dense_pairs, case):
+    """rescale_step gives the rows that trigger a new factor and g at
+    their new scale and leaves the other rows' factor as it was."""
+    p = dense_pairs[case]
+    sj, core = p["sj"], p["st"].core
+    state = sj._states
+    for _ in range(2):
+        state = p["vchunk"](state, sj.mats)
+    trig = np.array([True, False, False, True])
+    state = state._replace(
+        rescale_trigger=jax.numpy.asarray(trig),
+        rescale_ratio=jax.numpy.asarray([3.0, 3.0, 0.2, 0.2]),
+    )
+    out_j = jax.jit(jax.vmap(sj.core.rescale_step))(state, sj.mats)
+    st_t = batch_state_from_numpy(_np(state))
+    before = core.factorizations
+    out_t = core.rescale_step(st_t, p["mats_t"])
+    assert core.factorizations == before + 1
+    _assert_dense_states_match(out_t, out_j, sj.core.N)
+    assert torch.equal(out_t.L[1], st_t.L[1]) and torch.equal(out_t.L[2], st_t.L[2])
+    assert not torch.equal(out_t.L[0], st_t.L[0])
+    # no row triggers: no factorization, the same factor tensor
+    quiet = st_t._replace(rescale_trigger=torch.zeros(4, dtype=torch.bool))
+    assert core.rescale_step(quiet, p["mats_t"]).L is quiet.L
+    assert core.factorizations == before + 1
+
+
+def test_dense_masked_chunk_carries_factor_and_g(dense_pairs):
+    p = dense_pairs["qp_inverse"]
+    core, mats = p["st"].core, p["st"].mats
+    s0 = p["st"]._states
+    s1 = core.masked_chunk(s0, mats, 10**6)
+    assert s1.L is s0.L and s1.gx is s0.gx and s1.gy is s0.gy
+    frozen = core.masked_chunk(s0, mats, 0)  # every row at its cap
+    assert torch.equal(frozen.w, s0.w) and frozen.it.tolist() == [0] * 4
+
+
+@pytest.mark.parametrize("case", ["qp_inverse", "qp_cholesky", "qp_indirect"])
+def test_dense_end_to_end_matches_scs_tpu(dense_pairs, case):
+    p = dense_pairs[case]
+    rj, rt = p["sj"].solve(), p["st"].solve()
+    for i, (a, b) in enumerate(zip(rt, rj)):
+        assert a["info"]["status"] == b["info"]["status"] == "solved", i
+        assert a["info"]["iter"] == b["info"]["iter"], i
+        assert abs(a["info"]["pobj"] - b["info"]["pobj"]) <= 1e-6 * (1 + abs(b["info"]["pobj"]))
+        for k in ("x", "y", "s"):  # two solves to eps 1e-6 of one problem
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-5, err_msg=f"{k}[{i}]")
+        assert set(a["info"]) == set(b["info"])
+    assert p["st"].bucket_ladder == [4] and p["st"].device_prob_iters > 0
+
+
+def test_dense_lp_default_settings_solves_like_scs_tpu():
+    """Default settings (type-I AA at regularization 1e-8) on an LP batch:
+    iteration counts are chaotic in both packages, so the pair is held to
+    equal statuses and objectives within 10 eps."""
+    data = _gen_dense_batch(5, DM, DN, seed=8, with_P=False)
+    kw = dict(dtype="float64", eps_abs=1e-6, eps_rel=1e-6, max_iters=20000)
+    rj = jb.solve_batch(_copy(data), {"l": DM}, **kw)
+    rt = st.solve_batch(_copy(data), {"l": DM}, **kw)
+    for a, b in zip(rt, rj):
+        assert a["info"]["status"] == b["info"]["status"] == "solved"
+        assert abs(a["info"]["pobj"] - b["info"]["pobj"]) <= 1e-5 * (1 + abs(b["info"]["pobj"]))
+
+
+def test_dense_in_chunk_rescale_batch_equals_single_solves():
+    """With rescale_in_chunk=True the batched core is the single core row
+    by row: each problem takes exactly its single-solve iteration count
+    (the single path equilibrates on the host in numpy, the batch on the
+    device in torch: the same operations)."""
+    data = _gen_dense_batch(4, DM, DN, seed=5)
+    kw = dict(DENSE_BASE, solver_strategy="direct", direct_solver="inverse",
+              check_interval=25, max_iters=20000)
+    res = st.BatchedSCS(_copy(data), {"l": DM}, rescale_in_chunk=True, **kw).solve()
+    from scipy import sparse
+
+    for i, r in enumerate(res):
+        one = {"A": sparse.csc_matrix(data["A"][i]), "P": sparse.csc_matrix(np.triu(data["P"][i])),
+               "b": data["b"][i], "c": data["c"][i]}
+        single = st.solve(one, {"l": DM}, **kw)
+        assert r["info"]["status"] == single["info"]["status"] == "solved"
+        assert r["info"]["iter"] == single["info"]["iter"], i
+        assert r["info"]["scale_updates"] == single["info"]["scale_updates"]
+        np.testing.assert_allclose(r["x"], single["x"], rtol=1e-6, atol=1e-9)
+
+
+def test_dense_compaction_matches_scs_tpu():
+    """B = 64 = 2 x _MIN_BUCKET: compaction is on at the real ladder floor;
+    the factor slot L rides through the gather with every other leaf."""
+    B, m, n = 64, 20, 12
+    data = _gen_dense_batch(B, m, n, seed=2)
+    kw = dict(DENSE_BASE, solver_strategy="direct", max_iters=4000)
+    sj = jb.BatchedSCS(_copy(data), {"l": m}, **kw)
+    stt = st.BatchedSCS(_copy(data), {"l": m}, **kw)
+    rj, rt = sj.solve(), stt.solve()
+    assert stt.bucket_ladder[0] == 64 and stt.bucket_ladder[-1] == 32
+    iters_j = np.array([r["info"]["iter"] for r in rj])
+    iters_t = np.array([r["info"]["iter"] for r in rt])
+    assert len(set(iters_j.tolist())) > 1  # problems retire at different times
+    np.testing.assert_array_equal(iters_t, iters_j)
+    assert [r["info"]["status"] for r in rt] == [r["info"]["status"] for r in rj]
+    pj = np.array([r["info"]["pobj"] for r in rj])
+    pt = np.array([r["info"]["pobj"] for r in rt])
+    np.testing.assert_allclose(pt, pj, rtol=1e-6, atol=1e-6)
+    # without compaction: the same answers in one bucket
+    flat = st.BatchedSCS(_copy(data), {"l": m}, batch_compaction=False, **kw)
+    rf = flat.solve()
+    assert flat.bucket_ladder == [64]
+    np.testing.assert_array_equal([r["info"]["iter"] for r in rf], iters_t)
+    assert flat.device_prob_iters > stt.device_prob_iters
+
+
+def test_dense_update_and_reset_reuse_the_factor():
+    data = _gen_dense_batch(4, DM, DN, seed=5)
+    kw = dict(DENSE_BASE, solver_strategy="direct")
+    keep = _copy(data)
+    solver = st.BatchedSCS(data, {"l": DM}, **kw)
+    for k in data:  # the caller's arrays are never scaled in place
+        np.testing.assert_array_equal(data[k], keep[k])
+    core = solver.core
+    assert core.factorizations == 1
+    first = solver.solve()
+    n_first = core.factorizations
+    solver.reset()
+    assert core.factorizations == n_first
+    again = solver.solve()
+    # a rescale refactorizes its rows between segments; reset() does not
+    assert (n_first > 1) == any(r["info"]["scale_updates"] for r in first)
+    for a, b in zip(first, again):
+        assert a["info"]["iter"] == b["info"]["iter"]
+        np.testing.assert_array_equal(a["x"], b["x"])
+    n_before = core.factorizations
+    rng = np.random.RandomState(3)
+    b2 = data["b"] + 0.05 * np.abs(rng.randn(4, DM))
+    c2 = data["c"] + 0.05 * rng.randn(4, DN)
+    solver.update(b=b2, c=c2)
+    assert core.factorizations == n_before  # g only, against the cached factor
+    assert solver._states.L is solver._L
+    upd = solver.solve()
+    sj = jb.BatchedSCS(_copy(data), {"l": DM}, **kw)
+    sj.update(b=b2, c=c2)
+    ref = sj.solve()
+    for a, b in zip(upd, ref):
+        assert a["info"]["status"] == b["info"]["status"] == "solved"
+        assert a["info"]["iter"] == b["info"]["iter"]
+        # two solves to eps 1e-6 of one problem
+        np.testing.assert_allclose(a["x"], b["x"], rtol=1e-4, atol=1e-5)
+
+
+def test_dense_input_forms_and_validation():
+    from scipy import sparse
+
+    data = _gen_dense_batch(3, 16, 10, seed=1)
+    kw = dict(DENSE_BASE, solver_strategy="direct")
+    ref = st.solve_batch(_copy(data), {"l": 16}, **kw)
+    as_lists = dict(data, A=[sparse.csc_matrix(a) for a in data["A"]], P=list(data["P"]))
+    as_tensors = {k: torch.as_tensor(v) for k, v in data.items()}
+    for other in (as_lists, as_tensors):
+        res = st.solve_batch(other, {"l": 16}, **kw)
+        for a, b in zip(res, ref):
+            np.testing.assert_array_equal(a["x"], b["x"])
+    np.testing.assert_array_equal(as_tensors["A"].numpy(), data["A"])  # untouched
+    auto = st.BatchedSCS(_copy(data), {"l": 16}, dtype="float64")  # eps 1e-4
+    assert auto.stg.solver_strategy == "direct" and auto.stg.direct_solver == "inverse"
+    assert auto.stg.lin_refine_steps == 0 and auto.core.refine_steps == 0
+    tight = st.BatchedSCS(_copy(data), {"l": 16}, dtype="float64", eps_abs=1e-6, eps_rel=1e-5)
+    assert tight.stg.lin_refine_steps == -1
+    for cls in (jb.BatchedSCS, tb.BatchedSCS):
+        with pytest.raises(ValueError, match=r"shape \(B, m, n\)"):
+            cls(dict(data, A=data["A"][0]), {"l": 16}, **kw)
+        with pytest.raises(ValueError, match="cone dimensions incompatible"):
+            cls(_copy(data), {"l": 15}, **kw)
+    res, mask = auto.polish(auto.solve())
+    assert len(res) == 3 and not mask.any()
+
+
+def test_dense_f32_batch_solves_at_eps():
+    """The flagship's settings at a small size on the CPU: f32, eps 1e-4,
+    the inverse apply without refinement; objectives against the f64 run."""
+    data = _gen_dense_batch(6, DM, DN, seed=13)
+    kw = dict(eps_abs=1e-4, eps_rel=1e-4, max_iters=20000, device="cpu")
+    s32 = st.BatchedSCS(_copy(data), {"l": DM}, dtype="float32", **kw)
+    assert s32.mats.A.dtype == torch.float32 and s32._L.dtype == torch.float32
+    assert s32.core.use_inverse and s32.core.refine_steps == 0
+    r32 = s32.solve()
+    r64 = st.solve_batch(_copy(data), {"l": DM}, dtype="float64", **kw)
+    for a, b in zip(r32, r64):
+        assert a["info"]["status"] == b["info"]["status"] == "solved"
+        assert a["x"].dtype == np.float32
+        assert abs(a["info"]["pobj"] - b["info"]["pobj"]) <= 1e-3 * (1 + abs(b["info"]["pobj"]))

@@ -188,3 +188,178 @@ def test_state_from_numpy_types(pair):
     assert isinstance(st.avg_cnt, float)
     assert st.w.dtype == torch.float64 and st.scale.dim() == 0
     assert st.aa.count == -1 and st.status == scs_tpu_torch.UNFINISHED
+
+
+# -- the dense strategies -------------------------------------------------------
+#
+# "direct" in both direct_solver modes and "indirect" on the same LP and QP
+# (densified by the API). The direct path has no CG stall rule and no
+# early-stopped Krylov iterate, so only the AA least squares needs the
+# stabilising regularization; the tolerance stays rtol 1e-10.
+
+DENSE_KW = dict(eps_abs=1e-7, eps_rel=1e-7, verbose=False, acceleration_regularization=1e-4)
+DENSE_MODES = {
+    "cholesky": dict(solver_strategy="direct", direct_solver="cholesky"),
+    "inverse": dict(solver_strategy="direct", direct_solver="inverse"),
+    "indirect": dict(solver_strategy="indirect", cg_tol_factor=1e-12),
+}
+
+
+@pytest.fixture(
+    scope="module",
+    params=[(p, m) for p in sorted(PROBLEMS) for m in sorted(DENSE_MODES)],
+    ids=lambda pm: f"{pm[0]}-{pm[1]}",
+)
+def dense_pair(request):
+    prob, mode = request.param
+    data, cone = PROBLEMS[prob]()
+    kw = dict(DENSE_KW, **DENSE_MODES[mode])
+    sj = scs_tpu.SCS(data, cone, **kw)
+    st = scs_tpu_torch.SCS(data, cone, **kw)
+    return {
+        "sj": sj, "cj": sj.core, "ct": st.core, "st": st, "mode": mode,
+        "mats_t": mats_from_numpy(_np(sj.mats)),
+        "iter_j": jax.jit(sj.core._iter_body),
+    }
+
+
+def test_dense_mats_and_flags(dense_pair):
+    sj, st, ct, cj = dense_pair["sj"], dense_pair["st"], dense_pair["ct"], dense_pair["cj"]
+    assert (ct.indirect, ct.use_bell, ct.use_inverse, ct.refine_steps) == (
+        cj.indirect, cj.use_bell, cj.use_inverse, cj.refine_steps)
+    mt = dense_pair["mats_t"]
+    assert mt.bell is None and mt.pbell is None and mt.A.is_contiguous()
+    assert (mt.P is None) == (not cj.has_P)
+    # the API's own host equilibration gives the same dense data
+    _close(st.mats.A.numpy(), sj.mats.A)
+    if cj.has_P:
+        _close(st.mats.P.numpy(), sj.mats.P)
+    for f in ("bn", "cn", "D", "E", "sc_b", "sc_c"):
+        _close(getattr(st.mats, f).numpy(), getattr(sj.mats, f))
+
+
+def test_dense_factorize_and_g_match(dense_pair):
+    ct, mats_t = dense_pair["ct"], dense_pair["mats_t"]
+    s0j = dense_pair["sj"]._state0
+    before = ct.factorizations
+    s0t = ct.init_state(mats_t)
+    if dense_pair["mode"] == "indirect":
+        assert tuple(s0t.L.shape) == (0, 0) == np.asarray(s0j.L).shape
+        assert ct.factorizations == before
+    else:
+        assert ct.factorizations == before + 1
+        _close(s0t.L.numpy(), s0j.L)  # the Cholesky factor, or S^-1
+    _close(s0t.gx.numpy(), s0j.gx)
+    _close(s0t.gy.numpy(), s0j.gy)
+    # g from a given factor: no new factorization
+    L_t = state_from_numpy(_np(s0j)).L
+    gx, gy = ct._compute_g(mats_t, s0t.scale, L_t)
+    assert ct.factorizations == before + (dense_pair["mode"] != "indirect")
+    _close(gx.numpy(), s0j.gx)
+    _close(gy.numpy(), s0j.gy)
+
+
+def test_dense_lin_solve_matches(dense_pair):
+    cj, ct = dense_pair["cj"], dense_pair["ct"]
+    st_j = _advance(dense_pair, 5)
+    st_t = state_from_numpy(_np(st_j))
+    rng = np.random.RandomState(12)
+    rhs = rng.randn(cj.n)
+    tol = 1e-12 * np.linalg.norm(rhs)
+    x_j, k_j = jax.jit(cj._lin_solve)(st_j, dense_pair["sj"].mats, rhs, tol)
+    x_t, k_t = ct._lin_solve(st_t, dense_pair["mats_t"], torch.as_tensor(rhs),
+                             torch.tensor(tol, dtype=torch.float64))
+    _close(x_t.numpy(), x_j)
+    if dense_pair["mode"] == "indirect":
+        assert abs(k_t - int(k_j)) <= CG_STALL_WINDOW and k_t > 0
+    else:
+        assert k_t == int(k_j) == 0
+
+
+def test_dense_refinement_pass_matches():
+    """lin_refine_steps=2 in f64 (the auto policy gives 0 there): the
+    refinement residual runs through the dense matvecs."""
+    data, cone = _qp()
+    kw = dict(DENSE_KW, solver_strategy="direct", direct_solver="inverse", lin_refine_steps=2)
+    sj, st = scs_tpu.SCS(data, cone, **kw), scs_tpu_torch.SCS(data, cone, **kw)
+    assert st.core.refine_steps == sj.core.refine_steps == 2
+    _close(st._state0.gx.numpy(), sj._state0.gx)
+    out_j = jax.jit(sj.core._step)(sj._state0, sj.mats)
+    out_t = st.core._step(state_from_numpy(_np(sj._state0)), mats_from_numpy(_np(sj.mats)))
+    _close(out_t.w.numpy(), out_j.w)
+
+
+def test_dense_iterations_with_aa_trials_match(dense_pair):
+    ct, mats_t = dense_pair["ct"], dense_pair["mats_t"]
+    k = 2 * dense_pair["cj"].interval
+    st_j = _advance(dense_pair, k)
+    st_t = state_from_numpy(_np(dense_pair["sj"]._state0))
+    for _ in range(k):
+        st_t = ct._iter_body(st_t, mats_t)
+    assert st_t.it == int(st_j.it) == k
+    assert st_t.aa.aa_iter == int(st_j.aa.aa_iter) == 2
+    assert st_t.aa.n_accept == int(st_j.aa.n_accept)
+    # CG at its floor stops by the stall rule, which compares noise-level
+    # residuals (see CG_STALL_WINDOW): 20 such solves leave the indirect
+    # iterates apart by a few 1e-12 absolute, past 1e-10 relative on the
+    # LP's small entries. The direct modes hold rtol 1e-10.
+    rtol = 1e-9 if dense_pair["mode"] == "indirect" else RTOL
+    for f in ("w", "u", "v", "u_sum", "v_sum"):
+        a, b = getattr(st_t, f).numpy(), np.asarray(getattr(st_j, f))
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * np.abs(b).max(), err_msg=f)
+
+
+def test_dense_check_after_one_chunk(dense_pair):
+    sj, ct = dense_pair["sj"], dense_pair["ct"]
+    st_j = sj.core._jit_chunk(sj._state0, sj.mats)
+    st_t = ct._chunk(state_from_numpy(_np(sj._state0)), dense_pair["mats_t"])
+    assert st_t.it == int(st_j.it) == sj.stg.check_interval
+    assert st_t.status == int(st_j.status)
+    assert st_t.scale_updates == int(st_j.scale_updates)
+    _close(st_t.scale.numpy(), st_j.scale)
+    _close(st_t.w.numpy(), st_j.w)
+    _close(st_t.L.numpy(), st_j.L)
+    atol = RTOL * np.sqrt(sj.core.N)
+    for f in Diag._fields:
+        a, b = getattr(st_t.diag, f).numpy(), np.asarray(getattr(st_j.diag, f))
+        if np.isinf(b):
+            assert a == b, f
+        else:
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=atol, err_msg=f)
+
+
+def test_dense_rescale_refactorizes(dense_pair):
+    """A forced rescale runs _setup at the new scale: a new factor (direct)
+    and a new g, equal to scs_tpu's."""
+    cj, ct = dense_pair["cj"], dense_pair["ct"]
+    st_j = _advance(dense_pair, 5)
+    st_t = state_from_numpy(_np(st_j))
+    ratio = 3.0
+    out_j = jax.jit(cj._apply_rescale)(st_j, dense_pair["sj"].mats, jnp_f64(ratio), True)
+    before = ct.factorizations
+    out_t = ct._apply_rescale(st_t, dense_pair["mats_t"], torch.tensor(ratio, dtype=torch.float64), True)
+    assert ct.factorizations == before + (dense_pair["mode"] != "indirect")
+    assert out_t.scale_updates == int(out_j.scale_updates) == 1
+    for f in ("scale", "L", "gx", "gy", "v", "w", "v_sum"):
+        _close(getattr(out_t, f).numpy(), getattr(out_j, f))
+
+
+def jnp_f64(v):
+    return jax.numpy.asarray(v, jax.numpy.float64)
+
+
+def test_hi_acc_combination_raises():
+    """f32 below eps 3e-5 on the dense path is scs_tpu's compensated
+    hi_acc mode (ops/df32.py), not ported: the core refuses it by name;
+    f64 at the same eps, f32 at eps 1e-4, and f32 bell are fine."""
+    data, cone = _qp()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        scs_tpu_torch.SCS(data, cone, solver_strategy="direct", dtype="float32",
+                          eps_abs=1e-6, eps_rel=1e-6, verbose=False)
+    with pytest.raises(NotImplementedError, match="hi_acc"):
+        scs_tpu_torch.SCS(data, cone, solver_strategy="indirect", dtype="float32",
+                          eps_abs=1e-4, eps_rel=1e-5, verbose=False)
+    ok = scs_tpu_torch.SCS(data, cone, solver_strategy="direct", dtype="float32", verbose=False)
+    assert ok.core.refine_steps == 1 and ok.solve()["info"]["status"] == "solved"
+    scs_tpu_torch.SCS(data, cone, solver_strategy="bell", bell_block_size=16,
+                      dtype="float32", eps_abs=1e-6, eps_rel=1e-6, verbose=False)
