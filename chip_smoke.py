@@ -12,8 +12,10 @@ Phases, one line each; any failure raises and exits nonzero:
   2. build the CUDA kernels from the sources in this checkout (one nvcc
      per source, started together);
   3. every kernel against its plain PyTorch version on the card, at the
-     main paths' shapes and a few others, f32 and f64, with CUDA-event times:
-     the block-ELL SpMV (single and batched) and the batched dense GEMVs
+     main paths' shapes and a few others, f32 and f64, with CUDA-event times
+     beside the bound: the block-ELL SpMV (single and batched; x at its true
+     length, unpadded, as the solvers pass it; a repeated launch and a
+     launch on the padded x must be bit-equal) and the batched dense GEMVs
      gemv_rows / gemv_cols (flagship shapes, B = 1, ragged; also timed
      against torch.bmm with TF32 off; a repeated launch must be bit-equal);
   4. the main path: SCS(...).solve() under solver_strategy="bell" on the
@@ -42,6 +44,13 @@ Phases, one line each; any failure raises and exits nonzero:
 Then one JSON line describing the kernels, and last the contract line
 {"ok": true, "device": {...}}. With no CUDA device the script exits
 nonzero before printing any result.
+
+    python3 chip_smoke.py --bell-profile
+
+runs phases 1 and 2 and then, instead of the rest, a torch.profiler window
+over two chunks of the bell LP's solve (kernels per CG iteration, busy and
+idle share of the device, kernels by device time) and one whole solve; it
+prints no contract line.
 """
 
 import json
@@ -163,8 +172,12 @@ def gen_bell_batch(B, m, n, density, width=6, seed=11):
     return {"A": As, "b": np.stack(bs_), "c": np.stack(cs)}
 
 
-def time_ms(fn, reps=20):
-    """Median CUDA-event time of `reps` calls, after one warm-up call."""
+def time_ms(fn, reps=20, inner=1):
+    """Median over `reps` CUDA-event pairs of the time per call of `inner`
+    calls in a row, after one warm-up call. For a kernel of tens of
+    microseconds, several calls per pair keep the device's queue ahead of
+    the host, so that the time is the device's and not the host's gap
+    between an event and a launch."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -172,11 +185,34 @@ def time_ms(fn, reps=20):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+SPMV_INNER = 10  # launches per event pair when timing the SpMV (see time_ms)
+
+
+def time_graph_ms(fn, reps=20, inner=SPMV_INNER):
+    """Device time per call of fn: `inner` calls are captured into a CUDA
+    graph and the graph's replays are timed with events (median of `reps`),
+    so the host's cost of a call (tens of microseconds through a Python
+    wrapper, more than a small kernel runs) is not in the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture requires
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return time_ms(graph.replay, reps) / inner
 
 
 def phase_device():
@@ -222,32 +258,45 @@ def phase_build():
     print(f"[2] {len(libs)} kernel sources built in parallel in {secs:.2f} s")
 
 
-def _check_case(label, blocks_np, cols_np, dtype, rng, timed=False):
-    """Kernel vs plain version on the card for one pack; returns
-    (max_abs_err, kernel_ms, plain_ms)."""
+def _check_case(label, blocks_np, cols_np, x_len, dtype, rng, timed=False):
+    """Kernel vs plain version on the card for one pack, on x of its true
+    length x_len (unpadded, as the main path passes it) and on the same x
+    zero-padded to whole tiles; a repeated launch must be bit-equal.
+    Returns (max_abs_err, kernel_ms, plain_ms)."""
     dev = torch.device("cuda")
     blocks = torch.as_tensor(blocks_np, dtype=dtype, device=dev)
     cols = torch.as_tensor(cols_np, device=dev)
-    n_pad = (int(cols_np.max()) + 1) * blocks_np.shape[-1]
-    n_pad = max(n_pad, blocks_np.shape[-1])
-    x = torch.as_tensor(rng.randn(n_pad), dtype=dtype, device=dev)
+    nbr, width, bs, _ = blocks_np.shape
+    n_pad = max(int(cols_np.max()) + 1, -(-x_len // bs)) * bs
+    x_pad = torch.zeros(n_pad, dtype=dtype, device=dev)
+    x_pad[:x_len] = torch.as_tensor(rng.randn(x_len), dtype=dtype, device=dev)
+    x = x_pad[:x_len]
     y_k = bell_spmv(blocks, cols, x)
-    y_p = bell_spmv_ref(blocks, cols, x)
-    bound = TOL[dtype] * bell_spmv_ref(blocks.abs(), cols, x.abs())
+    y_again = bell_spmv(blocks, cols, x)
+    y_padded = bell_spmv(blocks, cols, x_pad)
+    y_p = bell_spmv_ref(blocks, cols, x_pad)
+    bound = TOL[dtype] * bell_spmv_ref(blocks.abs(), cols, x_pad.abs())
     torch.cuda.synchronize()
     err = (y_k - y_p).abs()
     if not bool(torch.all(err <= bound)):
         worst = float((err - bound).max())
         raise AssertionError(f"{label}: kernel disagrees with plain version (excess {worst:.3e})")
+    if not torch.equal(y_k, y_again):
+        raise AssertionError(f"{label} {dtype}: a repeated bell_spmv launch differs")
+    if not torch.equal(y_k, y_padded):
+        raise AssertionError(f"{label} {dtype}: unpadded and padded x give different results")
     k_ms = p_ms = None
+    t = ""
     if timed:
-        k_ms = time_ms(lambda: bell_spmv(blocks, cols, x))
-        p_ms = time_ms(lambda: bell_spmv_ref(blocks, cols, x))
-    nbr, width, bs, _ = blocks_np.shape
-    t = f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms" if timed else ""
+        k_ms = time_graph_ms(lambda: bell_spmv(blocks, cols, x))
+        p_ms = time_ms(lambda: bell_spmv_ref(blocks, cols, x_pad), inner=SPMV_INNER)
+        b_ms = _spmv_bound(blocks_np.shape, x_len, dtype)[0]
+        t = (f", kernel {k_ms:.4f} ms, bound {b_ms:.4f} ms ({100 * b_ms / k_ms:.0f}%), "
+             f"plain {p_ms:.4f} ms")
     print(
-        f"[3] {label} {str(dtype)[6:]}: pack ({nbr}, {width}, {bs}, {bs}), "
-        f"max |err| {float(err.max()):.3e} within {TOL[dtype]:g}*|A||x|{t}"
+        f"[3] {label} {str(dtype)[6:]}: pack ({nbr}, {width}, {bs}, {bs}), x {x_len} of {n_pad} "
+        f"unpadded, max |err| {float(err.max()):.3e} within {TOL[dtype]:g}*|A||x|, repeat and "
+        f"padded x bit-equal{t}"
     )
     return float(err.max()), k_ms, p_ms
 
@@ -260,57 +309,69 @@ def phase_kernels(bench, qp):
     P_full = qp["P"] + sparse.triu(qp["P"], k=1).T
     P_blocks, P_cols, _ = pack_bell_sym_host(P_full, BELL_BS, np.float64)
     wide = sparse.random(2000, 1500, density=0.05, random_state=rng, format="csc")
+    # (label, blocks, cols, true length of x, timed)
     cases = [
-        ("bench A", A_blocks, A_cols, True),
-        ("bench A^T", At_blocks, At_cols, True),
-        ("QP P", P_blocks, P_cols, False),
-        ("wide (w ~ nbc) A", *pack_bell_host(wide, 32, np.float64)[:2], True),
+        ("bench A", A_blocks, A_cols, BELL_N, True),
+        ("bench A^T", At_blocks, At_cols, BELL_M, True),
+        ("QP P", P_blocks, P_cols, QP_N, False),
+        ("wide (w ~ nbc) A", *pack_bell_host(wide, 32, np.float64)[:2], 1500, True),
         ("ragged bs=16 A", *pack_bell_host(
             sparse.random(1000, 777, density=0.03, random_state=rng, format="csc"),
-            16, np.float64)[:2], False),
+            16, np.float64)[:2], 777, False),
         ("ragged bs=32 A^T", *pack_bell_host(
             sparse.random(1234, 999, density=0.03, random_state=rng, format="csc"),
-            32, np.float64)[2:4], False),
+            32, np.float64)[2:4], 1234, False),
     ]
     max_err, times = 0.0, {}
     for dtype in (torch.float32, torch.float64):
-        for label, blocks_np, cols_np, timed in cases:
-            err, k_ms, p_ms = _check_case(label, blocks_np, cols_np, dtype, rng, timed)
+        for label, blocks_np, cols_np, x_len, timed in cases:
+            err, k_ms, p_ms = _check_case(label, blocks_np, cols_np, x_len, dtype, rng, timed)
             max_err = max(max_err, err)
             if timed:
                 times[(label, dtype)] = (k_ms, p_ms)
     # (pack shape, x length) per case, for the bounds
-    shapes = {c[0]: (c[1].shape, (int(c[2].max()) + 1) * c[1].shape[-1]) for c in cases}
+    shapes = {c[0]: (c[1].shape, c[3]) for c in cases}
     return max_err, times, (A_blocks, A_cols), shapes
 
 
-def _check_batched_case(label, blocks_np, cols_np, dtype, rng, timed=False):
+def _check_batched_case(label, blocks_np, cols_np, x_len, dtype, rng, timed=False):
     """The batched kernel vs its plain version on the card for one stacked
-    pack; returns (max_abs_err, kernel_ms, plain_ms)."""
+    pack, on x of its true length x_len passed as a column slice of the
+    padded tensor (strided rows, no copy); a repeated launch must be
+    bit-equal. Returns (max_abs_err, kernel_ms, plain_ms)."""
     dev = torch.device("cuda")
     blocks = torch.as_tensor(blocks_np, dtype=dtype, device=dev)
     cols = torch.as_tensor(cols_np, device=dev)
     B, nbr, width, bs, _ = blocks_np.shape
-    n_pad = max(int(cols_np.max()) + 1, 1) * bs
-    x = torch.as_tensor(rng.randn(B, n_pad), dtype=dtype, device=dev)
+    n_pad = max(int(cols_np.max()) + 1, -(-x_len // bs)) * bs
+    x_pad = torch.zeros((B, n_pad), dtype=dtype, device=dev)
+    x_pad[:, :x_len] = torch.as_tensor(rng.randn(B, x_len), dtype=dtype, device=dev)
+    x = x_pad[:, :x_len]
     y_k = bell_spmv_batched(blocks, cols, x)
-    y_p = bell_spmv_batched_ref(blocks, cols, x)
-    bound = TOL[dtype] * bell_spmv_batched_ref(blocks.abs(), cols, x.abs())
+    y_again = bell_spmv_batched(blocks, cols, x)
+    y_p = bell_spmv_batched_ref(blocks, cols, x_pad)
+    bound = TOL[dtype] * bell_spmv_batched_ref(blocks.abs(), cols, x_pad.abs())
     torch.cuda.synchronize()
     err = (y_k - y_p).abs()
     if not bool(torch.all(err <= bound)):
         worst = float((err - bound).max())
         raise AssertionError(f"{label}: batched kernel disagrees with plain version (excess {worst:.3e})")
-    del bound
+    if not torch.equal(y_k, y_again):
+        raise AssertionError(f"{label} {dtype}: a repeated bell_spmv_batched launch differs")
+    del bound, y_again
     k_ms = p_ms = None
-    if timed:
-        k_ms = time_ms(lambda: bell_spmv_batched(blocks, cols, x))
-        p_ms = time_ms(lambda: bell_spmv_batched_ref(blocks, cols, x))
     gb = blocks.numel() * blocks.element_size() / 1e9
-    t = f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({gb / k_ms * 1e3:.0f} GB/s)" if timed else ""
+    t = ""
+    if timed:
+        k_ms = time_graph_ms(lambda: bell_spmv_batched(blocks, cols, x))
+        p_ms = time_ms(lambda: bell_spmv_batched_ref(blocks, cols, x_pad), inner=SPMV_INNER)
+        b_ms = _spmv_bound(blocks_np.shape, x_len, dtype)[0]
+        t = (f", kernel {k_ms:.4f} ms ({gb / k_ms * 1e3:.0f} GB/s), bound {b_ms:.4f} ms "
+             f"({100 * b_ms / k_ms:.0f}%), plain {p_ms:.4f} ms")
     print(
         f"[3] batched {label} {str(dtype)[6:]}: pack ({B}, {nbr}, {width}, {bs}, {bs}), "
-        f"{gb:.3f} GB, max |err| {float(err.max()):.3e} within {TOL[dtype]:g}*|A||x|{t}"
+        f"{gb:.3f} GB, x {x_len} of {n_pad} unpadded, max |err| {float(err.max()):.3e} within "
+        f"{TOL[dtype]:g}*|A||x|, repeat bit-equal{t}"
     )
     return float(err.max()), k_ms, p_ms
 
@@ -340,17 +401,18 @@ def phase_kernels_batched(batch, single_pack):
         k = 2 if transpose else 0
         return stack_bell_host([p[k] for p in ps], [p[k + 1] for p in ps])
 
+    # (label, blocks, cols, true length of x, timed)
     cases = [
-        ("bench A", *bench_A, True),
-        ("bench A^T", *bench_At, True),
-        ("ragged bs=16 A, mixed widths", *ragged((1000, 777), 16, (0.0005, 0.001, 0.003, 0.01, 0.002), False), False),
-        ("ragged bs=32 A^T, mixed widths", *ragged((1234, 999), 32, (0.003, 0.0005, 0.001), True), False),
+        ("bench A", *bench_A, BATCH_N, True),
+        ("bench A^T", *bench_At, BATCH_M, True),
+        ("ragged bs=16 A, mixed widths", *ragged((1000, 777), 16, (0.0005, 0.001, 0.003, 0.01, 0.002), False), 777, False),
+        ("ragged bs=32 A^T, mixed widths", *ragged((1234, 999), 32, (0.003, 0.0005, 0.001), True), 1234, False),
     ]
     widths = [c[1].shape[2] for c in cases]
     max_err, times = 0.0, {}
     for dtype in (torch.float32, torch.float64):
-        for label, blocks_np, cols_np, timed in cases:
-            err, k_ms, p_ms = _check_batched_case(label, blocks_np, cols_np, dtype, rng, timed)
+        for label, blocks_np, cols_np, x_len, timed in cases:
+            err, k_ms, p_ms = _check_batched_case(label, blocks_np, cols_np, x_len, dtype, rng, timed)
             max_err = max(max_err, err)
             if timed:
                 times[(label, dtype)] = (k_ms, p_ms)
@@ -361,15 +423,13 @@ def phase_kernels_batched(batch, single_pack):
     for dtype in (torch.float32, torch.float64):
         blocks = torch.as_tensor(blocks_np, dtype=dtype, device=dev)
         cols = torch.as_tensor(cols_np, device=dev)
-        x = torch.as_tensor(
-            rng.randn((int(cols_np.max()) + 1) * blocks_np.shape[-1]), dtype=dtype, device=dev
-        )
+        x = torch.as_tensor(rng.randn(BELL_N), dtype=dtype, device=dev)  # unpadded
         y1 = bell_spmv(blocks, cols, x)
         yb = bell_spmv_batched(blocks[None], cols[None], x[None])[0]
         if not torch.equal(y1, yb):
             raise AssertionError(f"B=1 batched launch differs from bell_spmv ({dtype})")
     print(f"[3] batched B=1 launch equals bell_spmv bit for bit (f32, f64); padded widths {widths}")
-    return max_err, times, (bench_A[0].shape, (int(bench_A[1].max()) + 1) * BELL_BS)
+    return max_err, times, (bench_A[0].shape, BATCH_N)
 
 
 def _spmv_bound(pack_shape, x_len, dtype):
@@ -535,6 +595,74 @@ def phase_main(bench):
         f"only: {BELL_TPU_ITERS} iterations)"
     )
     return launches
+
+
+def bell_profile(bench, chunks=2, warmup=2):
+    """`python3 chip_smoke.py --bell-profile`: a torch.profiler window over
+    `chunks` chunks (check_interval iterations each) of the bell LP's solve
+    after `warmup` chunks, with the same chunks timed unprofiled just
+    before: kernels and CG iterations in the window, the device's busy and
+    idle share, and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    solver = scs_tpu_torch.SCS(
+        bench, {"l": BELL_M}, solver_strategy="bell", eps_abs=BELL_EPS,
+        eps_rel=BELL_EPS, max_iters=50000, verbose=False, device="cuda",
+    )
+    core, mats = solver.core, solver.mats
+
+    def run(state, k):
+        for _ in range(k):
+            state = core._chunk(state, mats)
+        torch.cuda.synchronize()
+        return state
+
+    state = run(solver._state0, warmup)
+    cg0, l0 = state.cg_iters, bell_spmv.launches
+    t0 = time.perf_counter()
+    state = run(state, chunks)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cg_plain, launches = state.cg_iters - cg0, bell_spmv.launches - l0
+    cg0 = state.cg_iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = run(state, chunks)
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    cg_prof = state.cg_iters - cg0
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    busy, n_kernels = sum(r[1] for r in rows), sum(r[2] for r in rows)
+    iters = chunks * int(solver.stg.check_interval)
+    print(
+        f"[bell profile] {iters} iterations unprofiled: {plain_ms:.1f} ms, {int(cg_plain)} CG "
+        f"iterations, {launches} bell_spmv launches; the next {iters} profiled: {prof_ms:.1f} ms, "
+        f"{int(cg_prof)} CG iterations, {n_kernels} kernels ({n_kernels / max(int(cg_prof), 1):.1f} "
+        f"per CG iteration), busy {busy:.1f} ms = {100 * busy / prof_ms:.1f}% of the profiled "
+        f"wall (idle {100 - 100 * busy / prof_ms:.1f}%) and {100 * busy / plain_ms:.1f}% of the "
+        f"unprofiled one"
+    )
+    for name, ms, count in rows[:10]:
+        print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{count:<6d} {name[:90]}")
+    spmv = [(ms, count) for name, ms, count in rows if "bell_spmv" in name]
+    print(
+        f"[bell profile] bell_spmv kernels: {sum(m for m, _ in spmv):.1f} ms in "
+        f"{sum(c for _, c in spmv)} launches"
+    )
+    bell_spmv.launches = 0
+    sol = solver.solve()
+    torch.cuda.synchronize()
+    info = sol["info"]
+    print(
+        f"[bell profile] then the whole solve: {info['status']} in {info['iter']} iterations, "
+        f"{solver._last_state.cg_iters} CG iterations, {bell_spmv.launches} bell_spmv launches, "
+        f"{info['solve_time']:.3f} s"
+    )
 
 
 def phase_qp(qp):
@@ -789,6 +917,9 @@ def main():
     name = phase_device()
     phase_build()
     bench = gen_bell_lp(BELL_M, BELL_N, BELL_DENSITY)
+    if sys.argv[1:] == ["--bell-profile"]:
+        bell_profile(bench)
+        return
     qp = gen_bell_qp(QP_M, QP_N, 0.02)
     batch = gen_bell_batch(BATCH_B, BATCH_M, BATCH_N, BATCH_DENSITY, BATCH_WIDTH, BATCH_SEED)
     max_err, times, single_pack, shapes = phase_kernels(bench, qp)

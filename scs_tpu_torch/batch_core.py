@@ -36,7 +36,7 @@ from .cones import ConeSpec
 from .info import FAILED, UNFINISHED
 from .ops.projections import get_projector
 from .ops.dense import gemv_cols, gemv_rows
-from .ops.sparse import bell_spmv_batched, pad_to
+from .ops.sparse import bell_spmv_batched
 from .settings import Settings
 from .solver import ZERO_CONE_RY_FACTOR, Core, Diag, Mats, _no_tf32
 
@@ -169,24 +169,19 @@ class BatchedCore:
         if not self.use_bell:
             return gemv_rows(mats.A, x)
         bell = mats.bell
-        n_pad = bell.At_blocks.shape[1] * bell.A_blocks.shape[-1]
-        y = bell_spmv_batched(bell.A_blocks, bell.A_cols, pad_to(x, n_pad))
-        return y[:, : self.m]
+        return bell_spmv_batched(bell.A_blocks, bell.A_cols, x)[:, : self.m]
 
     def _ATy(self, mats: Mats, y):
         if not self.use_bell:
             return gemv_cols(mats.A, y)
         bell = mats.bell
-        m_pad = bell.A_blocks.shape[1] * bell.At_blocks.shape[-1]
-        x = bell_spmv_batched(bell.At_blocks, bell.At_cols, pad_to(y, m_pad))
-        return x[:, : self.n]
+        return bell_spmv_batched(bell.At_blocks, bell.At_cols, y)[:, : self.n]
 
     def _Px(self, mats: Mats, x):
         if not self.use_bell:
             return gemv_rows(mats.P, x)
         pb = mats.pbell
-        n_pad = pb.blocks.shape[1] * pb.blocks.shape[-1]
-        return bell_spmv_batched(pb.blocks, pb.cols, pad_to(x, n_pad))[:, : self.n]
+        return bell_spmv_batched(pb.blocks, pb.cols, x)[:, : self.n]
 
     def _diagS(self, mats: Mats, dy, scale):
         """diag(S) per problem; the scale is (B,) (see Core._diagS)."""

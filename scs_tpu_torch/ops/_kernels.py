@@ -37,11 +37,12 @@ NVCC_FLAGS = (
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SYMBOLS = {
     "bell_spmv": {
-        "bell_spmv_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-        "bell_spmv_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-        # (blocks, cols, x, y, batch, nbr, width, bs, x_len, stream)
-        "bell_spmv_batched_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
-        "bell_spmv_batched_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        # (blocks, cols, x, y, nbr, width, bs, x_len, stream)
+        "bell_spmv_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        "bell_spmv_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        # (blocks, cols, x, y, batch, nbr, width, bs, x_len, x_stride, stream)
+        "bell_spmv_batched_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+        "bell_spmv_batched_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     },
     "gemv": {
         # (M, x, y, batch, rows, cols, stream)

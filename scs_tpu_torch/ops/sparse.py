@@ -8,7 +8,8 @@ unchanged, so a pack made by either package serves both.
 
   * bell_spmv       — the kernel wrapper: a CUDA tensor launches the
                       hand-written kernel (csrc/bell_spmv.cu), a CPU tensor
-                      takes the plain version
+                      takes the plain version; x comes at its true length
+                      (zero beyond its end), nothing is padded for a launch
   * bell_spmv_ref   — the plain PyTorch version (gather + einsum)
   * bell_spmv_batched, bell_spmv_batched_ref — the same for B problems at
                       once (leading batch axis, per-problem cols), the
@@ -44,62 +45,81 @@ def bell_spmv_ref(blocks, cols, x_pad):
     return y.reshape(nbr * bs)
 
 
-def _launch(who, symbol, blocks, cols, x_pad, out_shape, sizes):
+def _pad_for_ref(x, cols, bs):
+    """x zero-padded along its last axis to whole tiles up to the last
+    block column that `cols` names: what the plain versions take. Only the
+    CPU path pads; the CUDA kernel reads zeros beyond x's end itself."""
+    n_blocks = max(int(cols.max()) + 1 if cols.numel() else 1, -(-x.shape[-1] // bs))
+    return torch.nn.functional.pad(x, (0, n_blocks * bs - x.shape[-1]))
+
+
+def _launch(who, symbol, blocks, cols, x, out_shape, sizes):
     """Check what every entry point of csrc/bell_spmv.cu takes (dtypes,
-    block size, one CUDA device, contiguity), then launch `symbol`'s f32 or
-    f64 instantiation on the current stream. Returns y; raises on anything
-    the kernel does not take and on a failed launch."""
+    block size, one CUDA device, contiguity; x needs unit stride along its
+    last axis only), then launch `symbol`'s f32 or f64 instantiation on the
+    current stream. Returns y; raises on anything the kernel does not take
+    and on a failed launch."""
     dev = blocks.device
     bs = blocks.shape[-1]
     if blocks.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{who}: blocks must be float32 or float64, got {blocks.dtype}")
-    if x_pad.dtype != blocks.dtype:
-        raise TypeError(f"{who}: x dtype {x_pad.dtype} != blocks dtype {blocks.dtype}")
+    if x.dtype != blocks.dtype:
+        raise TypeError(f"{who}: x dtype {x.dtype} != blocks dtype {blocks.dtype}")
     if cols.dtype != torch.int32:
         raise TypeError(f"{who}: cols must be int32, got {cols.dtype}")
     if not 1 <= bs <= 1024:
-        raise ValueError(f"{who}: block size {bs} outside [1, 1024] (one thread per row)")
-    for name, t in (("blocks", blocks), ("cols", cols), ("x", x_pad)):
+        raise ValueError(f"{who}: block size {bs} outside [1, 1024]")
+    if blocks.shape[-3] < 1:
+        raise ValueError(f"{who}: a pack needs at least one slot per block-row")
+    for name, t in (("blocks", blocks), ("cols", cols), ("x", x)):
         if t.device != dev:
             raise ValueError(f"{who}: {name} on {t.device}, blocks on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{who}: {name} must be contiguous")
+    if not blocks.is_contiguous() or not cols.is_contiguous():
+        raise ValueError(f"{who}: blocks and cols must be contiguous")
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        raise ValueError(f"{who}: x must have unit stride along its last axis")
 
     from . import _kernels  # noqa: PLC0415
 
     lib = _kernels.load("bell_spmv")
     fn = getattr(lib, symbol + ("_f32" if blocks.dtype == torch.float32 else "_f64"))
     y = torch.empty(out_shape, dtype=blocks.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(blocks.data_ptr(), cols.data_ptr(), x_pad.data_ptr(), y.data_ptr(),
-                *sizes, stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (blocks.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), *sizes, stream)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:  # the launch goes to the runtime's current device
+        with torch.cuda.device(dev):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{who} kernel launch failed: cudaError {rc}")
     return y
 
 
-def bell_spmv(blocks, cols, x_pad):
-    """Block-ELL SpMV y = A @ x; shapes as bell_spmv_ref.
+def bell_spmv(blocks, cols, x):
+    """Block-ELL SpMV y = A @ x; blocks and cols as bell_spmv_ref. x is
+    1-D of any length and counts as zero beyond its end, so the caller
+    passes a vector of the matrix's true column count, unpadded.
 
     On a CUDA tensor this launches the CUDA kernel of csrc/bell_spmv.cu
     (built with nvcc at first use) on the current stream and counts the
     launch in `bell_spmv.launches`; anything the kernel does not take
-    raises. On a CPU tensor it is bell_spmv_ref.
+    raises. On a CPU tensor it pads x and calls bell_spmv_ref.
     """
     dev = blocks.device
-    if dev.type == "cpu":
-        return bell_spmv_ref(blocks, cols, x_pad)
-    if dev.type != "cuda":
-        raise ValueError(f"bell_spmv: unsupported device {dev}")
     if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
         raise ValueError(f"bell_spmv: blocks must be (nbr, w, bs, bs), got {tuple(blocks.shape)}")
     nbr, width, bs, _ = blocks.shape
     if tuple(cols.shape) != (nbr, width):
         raise ValueError(f"bell_spmv: cols shape {tuple(cols.shape)} != {(nbr, width)}")
-    if x_pad.dim() != 1 or x_pad.numel() % bs != 0:
-        raise ValueError(f"bell_spmv: x must be 1-D with a multiple of bs={bs} elements")
-    y = _launch("bell_spmv", "bell_spmv", blocks, cols, x_pad, (nbr * bs,), (nbr, width, bs))
+    if x.dim() != 1:
+        raise ValueError(f"bell_spmv: x must be 1-D, got {tuple(x.shape)}")
+    if dev.type == "cpu":
+        return bell_spmv_ref(blocks, cols, _pad_for_ref(x, cols, bs))
+    if dev.type != "cuda":
+        raise ValueError(f"bell_spmv: unsupported device {dev}")
+    y = _launch("bell_spmv", "bell_spmv", blocks, cols, x, (nbr * bs,),
+                (nbr, width, bs, x.shape[0]))
     bell_spmv.launches += 1
     return y
 
@@ -130,47 +150,44 @@ def bell_spmv_batched_ref(blocks, cols, x_pad):
 _MAX_BATCH = 65535  # the kernel's batch is its grid's y axis
 
 
-def bell_spmv_batched(blocks, cols, x_pad):
-    """Batched block-ELL SpMV y[b] = A_b @ x[b]; shapes as
-    bell_spmv_batched_ref.
+def bell_spmv_batched(blocks, cols, x):
+    """Batched block-ELL SpMV y[b] = A_b @ x[b]; blocks and cols as
+    bell_spmv_batched_ref. x is (B, x_len) with unit stride along its last
+    axis (rows may be strided: a column slice of a wider tensor needs no
+    copy) and counts as zero beyond x_len.
 
     On a CUDA tensor this launches the batched entry point of
     csrc/bell_spmv.cu (the problem is the grid's second axis) on the
     current stream and counts the launch in `bell_spmv_batched.launches`;
-    anything the kernel does not take raises. On a CPU tensor it is
-    bell_spmv_batched_ref.
+    anything the kernel does not take raises. On a CPU tensor it pads x
+    and calls bell_spmv_batched_ref.
     """
     dev = blocks.device
-    if dev.type == "cpu":
-        return bell_spmv_batched_ref(blocks, cols, x_pad)
-    if dev.type != "cuda":
-        raise ValueError(f"bell_spmv_batched: unsupported device {dev}")
     if blocks.dim() != 5 or blocks.shape[3] != blocks.shape[4]:
         raise ValueError(
             f"bell_spmv_batched: blocks must be (B, nbr, w, bs, bs), got {tuple(blocks.shape)}"
         )
     B, nbr, width, bs, _ = blocks.shape
-    if not 1 <= B <= _MAX_BATCH:
-        raise ValueError(f"bell_spmv_batched: batch {B} outside [1, {_MAX_BATCH}]")
     if tuple(cols.shape) != (B, nbr, width):
         raise ValueError(f"bell_spmv_batched: cols shape {tuple(cols.shape)} != {(B, nbr, width)}")
-    if x_pad.dim() != 2 or x_pad.shape[0] != B or x_pad.shape[1] % bs != 0:
-        raise ValueError(
-            f"bell_spmv_batched: x must be (B={B}, k*bs) with bs={bs}, got {tuple(x_pad.shape)}"
-        )
-    y = _launch("bell_spmv_batched", "bell_spmv_batched", blocks, cols, x_pad,
-                (B, nbr * bs), (B, nbr, width, bs, x_pad.shape[1]))
+    if x.dim() != 2 or x.shape[0] != B:
+        raise ValueError(f"bell_spmv_batched: x must be (B={B}, x_len), got {tuple(x.shape)}")
+    if dev.type == "cpu":
+        return bell_spmv_batched_ref(blocks, cols, _pad_for_ref(x, cols, bs))
+    if dev.type != "cuda":
+        raise ValueError(f"bell_spmv_batched: unsupported device {dev}")
+    if not 1 <= B <= _MAX_BATCH:
+        raise ValueError(f"bell_spmv_batched: batch {B} outside [1, {_MAX_BATCH}]")
+    x_stride = x.stride(0) if B > 1 else 0
+    if x_stride < 0:
+        raise ValueError("bell_spmv_batched: x has a negative row stride")
+    y = _launch("bell_spmv_batched", "bell_spmv_batched", blocks, cols, x,
+                (B, nbr * bs), (B, nbr, width, bs, x.shape[1], x_stride))
     bell_spmv_batched.launches += 1
     return y
 
 
 bell_spmv_batched.launches = 0  # kernel launches since the last reset
-
-
-def pad_to(x, length):
-    """x zero-padded at the end of its last axis to `length` elements (a
-    new contiguous tensor, also when no padding is needed)."""
-    return torch.nn.functional.pad(x, (0, length - x.shape[-1]))
 
 
 class BellMatrix(NamedTuple):
@@ -198,11 +215,11 @@ class BellMatrix(NamedTuple):
 
     def mv(self, x):
         """A @ x for x of length n (returns length m)."""
-        return bell_spmv(self.A_blocks, self.A_cols, pad_to(x, self.n_pad))[: self.m]
+        return bell_spmv(self.A_blocks, self.A_cols, x)[: self.m]
 
     def rmv(self, y):
         """A^T @ y for y of length m (returns length n)."""
-        return bell_spmv(self.At_blocks, self.At_cols, pad_to(y, self.m_pad))[: self.n]
+        return bell_spmv(self.At_blocks, self.At_cols, y)[: self.n]
 
 
 def pack_bell_host(A_csc, block_size=128, np_dtype=np.float32):

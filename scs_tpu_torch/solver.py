@@ -42,7 +42,7 @@ from .cones import ConeSpec
 from .info import FAILED, INFEASIBLE, SOLVED, UNBOUNDED, UNFINISHED
 from .ops.projections import get_projector
 from .ops.dense import gemv_cols, gemv_rows
-from .ops.sparse import bell_spmv, pad_to
+from .ops.sparse import bell_spmv
 from .settings import Settings
 
 ZERO_CONE_RY_FACTOR = 1e-3  # zero-cone rows get rho_y = factor / scale
@@ -266,8 +266,7 @@ class Core:
         if not self.use_bell:
             return gemv_rows(mats.A, x)
         bell = mats.bell
-        n_pad = bell.At_blocks.shape[0] * bell.A_blocks.shape[-1]
-        return bell_spmv(bell.A_blocks, bell.A_cols, pad_to(x, n_pad))[: self.m]
+        return bell_spmv(bell.A_blocks, bell.A_cols, x)[: self.m]
 
     def _ATy(self, mats: Mats, y):
         """A^T @ y — the dense column-reduction kernel on the stored A (no
@@ -275,8 +274,7 @@ class Core:
         if not self.use_bell:
             return gemv_cols(mats.A, y)
         bell = mats.bell
-        m_pad = bell.A_blocks.shape[0] * bell.At_blocks.shape[-1]
-        return bell_spmv(bell.At_blocks, bell.At_cols, pad_to(y, m_pad))[: self.n]
+        return bell_spmv(bell.At_blocks, bell.At_cols, y)[: self.n]
 
     def _Px(self, mats: Mats, x):
         """P @ x — dense, or block-ELL SpMV (P is symmetric: one pack
@@ -284,8 +282,7 @@ class Core:
         if not self.use_bell:
             return gemv_rows(mats.P, x)
         pb = mats.pbell
-        n_pad = pb.blocks.shape[0] * pb.blocks.shape[-1]
-        return bell_spmv(pb.blocks, pb.cols, pad_to(x, n_pad))[: self.n]
+        return bell_spmv(pb.blocks, pb.cols, x)[: self.n]
 
     def _matvec_S(self, mats: Mats, dy, x):
         out = self.stg.rho_x * x + self._ATy(mats, dy * self._Ax(mats, x))

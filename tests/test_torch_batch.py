@@ -75,6 +75,17 @@ def pairs():
     return out
 
 
+@pytest.fixture(scope="module")
+def ragged_pair():
+    """Both packages' BatchedSCS on 3 QPs of 100 x 70 at block size 32
+    (ragged edge tiles in both orientations), and scs_tpu's Mats carried
+    across."""
+    data, _ = _gen_sparse_batch(3, 100, 70, seed=5, with_P=True)
+    kw = dict(BASE, **STAB, eps_abs=1e-6, eps_rel=1e-6)
+    sj = jb.BatchedSCS(dict(data), {"l": 100}, **kw)
+    return sj, st.BatchedSCS(dict(data), {"l": 100}, **kw), mats_from_numpy(_np(sj.mats))
+
+
 # -- (a) the batched pack ------------------------------------------------------
 
 
@@ -103,6 +114,25 @@ def test_setup_g_matches_scs_tpu(pairs):
         s0j, s0t = p["sj"]._states, p["st"]._states
         _close(s0t.gx.numpy(), s0j.gx, err_msg=name)
         _close(s0t.gy.numpy(), s0j.gy, err_msg=name)
+
+
+@pytest.mark.parametrize("op", ["_Ax", "_ATy", "_Px"])
+def test_batched_operators_match_scs_tpu(ragged_pair, op):
+    """BatchedCore._Ax/_ATy/_Px on (B, n) / (B, m) vectors of the true
+    lengths (no multiples of the block size: the port pads nothing before
+    the product), contiguous and as column slices of a wider tensor,
+    against scs_tpu's operators under jax.vmap."""
+    sj, s_t, mats_t = ragged_pair
+    cj, ct = sj.core, s_t.core
+    B = 3
+    assert cj.n % 32 and cj.m % 32
+    k = cj.m if op == "_ATy" else cj.n
+    v = np.random.RandomState(17).randn(B, k + 4)
+    out_j = jax.vmap(getattr(cj, op))(sj.mats, jax.numpy.asarray(v[:, :k]))
+    for vt in (torch.as_tensor(v[:, :k].copy()), torch.as_tensor(v)[:, :k]):
+        out_t = getattr(ct, op)(mats_t, vt)
+        assert tuple(out_t.shape) == out_j.shape == (B, cj.m if op == "_Ax" else cj.n)
+        _close(out_t.numpy(), out_j)
 
 
 # -- (b) one batched chunk against jax.vmap(core._chunk) -----------------------

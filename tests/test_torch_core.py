@@ -113,6 +113,23 @@ def test_setup_g_matches(pair):
     _close(s0t.gy.numpy(), s0j.gy)
 
 
+@pytest.mark.parametrize("op", ["_Ax", "_ATy", "_Px"])
+def test_operators_match(pair, op):
+    """Core._Ax/_ATy/_Px on vectors of the true lengths n and m (no
+    multiples of the block size: the port pads nothing before the product)
+    against scs_tpu's, which pad to whole tiles."""
+    cj, ct = pair["cj"], pair["ct"]
+    assert cj.n % 16 and cj.m % 16  # ragged in both orientations
+    if op == "_Px" and not ct.has_P:
+        assert pair["mats_t"].pbell is None and pair["sj"].mats.pbell is None
+        return
+    v = np.random.RandomState(13).randn(cj.m if op == "_ATy" else cj.n)
+    out_j = getattr(cj, op)(pair["sj"].mats, jax.numpy.asarray(v))
+    out_t = getattr(ct, op)(pair["mats_t"], torch.as_tensor(v))
+    assert tuple(out_t.shape) == out_j.shape == ((cj.m,) if op == "_Ax" else (cj.n,))
+    _close(out_t.numpy(), out_j)
+
+
 def test_cg_solve_matches(pair):
     cj, ct = pair["cj"], pair["ct"]
     st_j = _advance(pair, 5)

@@ -173,6 +173,14 @@ def _batched_pack(m, n, bs, densities, np_dtype, transpose=False):
     return blocks, cols, x.astype(np_dtype)
 
 
+# ragged in both orientations (m and n no multiples of bs), mixed widths
+BATCH_CASES_UNPADDED = [
+    (100, 70, 8, (0.01, 0.05, 0.2)),
+    (300, 200, 16, (0.002, 0.05, 0.01, 0.1)),
+    (77, 130, 32, (0.02, 0.3)),
+]
+
+
 def test_stack_bell_host_pads_with_zero_tiles():
     blocks, cols, _ = _batched_pack(300, 200, 16, (0.002, 0.1), np.float64)
     w0 = tsp.pack_bell_host(_rand_csc(300, 200, 0.002, 500), 16, np.float64)[0].shape[1]
@@ -215,6 +223,88 @@ def test_bell_spmv_batched_matches_pallas_interpret_vmap(m, n, bs, densities):
     np.testing.assert_allclose(y_t.numpy(), y_j, rtol=1e-5, atol=1e-5)
 
 
+def _orientation_pack(which, m, n, bs, density, np_dtype):
+    """(blocks, cols, true x length) of A, of A^T, or of the symmetric
+    P = A^T A, packed on the host."""
+    A = _rand_csc(m, n, density, m + n)
+    if which == "P":
+        blocks, cols, _ = tsp.pack_bell_sym_host(sparse.csc_matrix(A.T @ A), bs, np_dtype)
+        return blocks, cols, n
+    pk = tsp.pack_bell_host(A, bs, np_dtype)
+    return (pk[0], pk[1], n) if which == "A" else (pk[2], pk[3], m)
+
+
+@pytest.mark.parametrize("np_dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("which", ["A", "At", "P"])
+@pytest.mark.parametrize("m,n,bs,density", CASES)
+def test_bell_spmv_unpadded_x_equals_plain_on_padded(m, n, bs, density, which, np_dtype):
+    """bell_spmv takes x at its true length (no multiple of bs) and gives
+    exactly what the plain version gives on the zero-padded x."""
+    blocks, cols, x_len = _orientation_pack(which, m, n, bs, density, np_dtype)
+    x = np.random.RandomState(8).randn(x_len).astype(np_dtype)
+    x_pad = np.zeros(-(-x_len // bs) * bs, np_dtype)
+    x_pad[:x_len] = x
+    bt, ct = torch.as_tensor(blocks), torch.as_tensor(cols)
+    y = tsp.bell_spmv(bt, ct, torch.as_tensor(x))
+    y_pad = tsp.bell_spmv_ref(bt, ct, torch.as_tensor(x_pad))
+    assert torch.equal(y, y_pad)
+    # a view into a longer vector (unit stride, no copy) and a padded x
+    # serve alike
+    longer = torch.as_tensor(np.concatenate([[7.0], x, [9.0]]).astype(np_dtype))
+    assert torch.equal(tsp.bell_spmv(bt, ct, longer[1:-1]), y_pad)
+    assert torch.equal(tsp.bell_spmv(bt, ct, torch.as_tensor(x_pad)), y_pad)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("np_dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("m,n,bs,densities", BATCH_CASES_UNPADDED)
+def test_bell_spmv_batched_unpadded_x_equals_plain_on_padded(m, n, bs, densities, np_dtype, transpose):
+    """The batched wrapper on x of the true length (also as a column slice
+    of a wider tensor, rows strided) equals the plain version on the padded
+    x; B > 1 with mixed widths."""
+    blocks, cols, x_pad = _batched_pack(m, n, bs, densities, np_dtype, transpose)
+    x_len = m if transpose else n
+    assert x_len % bs != 0 and x_pad.shape[1] > x_len
+    x_pad[:, x_len:] = 0
+    bt, ct = torch.as_tensor(blocks), torch.as_tensor(cols)
+    y_pad = tsp.bell_spmv_batched_ref(bt, ct, torch.as_tensor(x_pad))
+    x = torch.as_tensor(x_pad[:, :x_len].copy())
+    assert torch.equal(tsp.bell_spmv_batched(bt, ct, x), y_pad)
+    wide = torch.as_tensor(np.concatenate([x_pad[:, :x_len], np.ones((len(densities), 5), np_dtype)], axis=1))
+    view = wide[:, :x_len]
+    assert not view.is_contiguous()
+    assert torch.equal(tsp.bell_spmv_batched(bt, ct, view), y_pad)
+
+
+@pytest.mark.parametrize("m,n,bs", [(100, 70, 8), (300, 200, 16), (130, 45, 32)])
+def test_bell_matrix_mv_rmv_match_scs_tpu(m, n, bs):
+    """BellMatrix.mv/.rmv on vectors of the true lengths against scs_tpu's
+    BellMatrix (plain path), f64."""
+    A = _rand_csc(m, n, 0.05, m + n)
+    bt = tsp.pack_bell(A, block_size=bs, dtype=torch.float64)
+    bj = jsp.pack_bell(A, block_size=bs, dtype=jnp.float64)  # x64 is on (conftest)
+    x = np.random.RandomState(1).randn(n)
+    y = np.random.RandomState(2).randn(m)
+    mv_j = np.asarray(bj.mv(jnp.asarray(x), use_pallas=False))
+    rmv_j = np.asarray(bj.rmv(jnp.asarray(y), use_pallas=False))
+    mv_t, rmv_t = bt.mv(torch.as_tensor(x)), bt.rmv(torch.as_tensor(y))
+    assert mv_t.shape == (m,) and rmv_t.shape == (n,)
+    np.testing.assert_allclose(mv_t.numpy(), mv_j, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(rmv_t.numpy(), rmv_j, rtol=1e-10, atol=1e-12)
+
+
+def test_bell_spmv_rejects_bad_shapes():
+    blocks = torch.zeros((2, 1, 8, 8))
+    cols = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="1-D"):
+        tsp.bell_spmv(blocks, cols, torch.zeros((2, 8)))
+    with pytest.raises(ValueError, match="cols shape"):
+        tsp.bell_spmv(blocks, cols[:1], torch.zeros(8))
+    with pytest.raises(ValueError, match=r"x must be \(B=2"):
+        tsp.bell_spmv_batched(blocks[None].expand(2, -1, -1, -1, -1), cols[None].expand(2, -1, -1),
+                              torch.zeros((3, 8)))
+
+
 def test_bell_spmv_batched_rejects_other_devices():
     blocks = torch.zeros((1, 1, 1, 8, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -251,3 +341,143 @@ def test_bell_spmv_batched_b1_equals_single_kernel_on_card(cuda_device, m, n, bs
     yb = tsp.bell_spmv_batched(bm.A_blocks[None], bm.A_cols[None], x[None])
     assert yb.shape == (1, y1.shape[0])
     assert torch.equal(yb[0], y1)
+
+
+# The kernel's shapes on the card: (label, nbr, nbc, width, bs). Narrow and
+# wide (w ~ nbc) packs; block sizes where an f32 lane takes two elements (a
+# multiple of 64) and one (the others), with ragged last chunks (bs 3, 100);
+# one block-row, one slot, packs far smaller than the grid, whose slots are
+# dealt to a thread block cluster.
+KERNEL_SHAPES = [
+    ("narrow", 40, 60, 5, 128),
+    ("wide", 12, 47, 47, 32),
+    ("bs3", 9, 7, 3, 3),
+    ("bs16", 33, 20, 6, 16),
+    ("bs32", 70, 31, 4, 32),
+    ("bs100", 11, 9, 4, 100),
+    ("bs128-wide-row", 3, 40, 37, 128),
+    ("one-block-row", 1, 30, 19, 128),
+    ("one-slot", 25, 25, 1, 64),
+    ("tiny", 2, 2, 1, 16),
+]
+
+
+def _random_pack(nbr, nbc, width, bs, np_dtype, seed, batch=None):
+    """A random pack in the packer's layout: distinct block columns per
+    block-row, the last slot of every other block-row a padding slot (zero
+    tile at block-column 0)."""
+    rng = np.random.RandomState(seed)
+    lead = () if batch is None else (batch,)
+    blocks = rng.randn(*lead, nbr, width, bs, bs).astype(np_dtype)
+    cols = np.stack([
+        rng.permutation(nbc)[:width] for _ in range(int(np.prod(lead, dtype=int)) * nbr)
+    ]).reshape(*lead, nbr, width).astype(np.int32)
+    if width > 1:
+        blocks[..., ::2, -1, :, :] = 0
+        cols[..., ::2, -1] = 0
+    return blocks, cols
+
+
+def _assert_kernel_close(y_k, y_p, bound):
+    err = (y_k - y_p).abs()
+    assert bool(torch.all(err <= bound)), float((err - bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("label,nbr,nbc,width,bs", KERNEL_SHAPES)
+def test_bell_spmv_kernel_shapes_on_card(cuda_device, label, nbr, nbc, width, bs, dtype, tol):
+    """The kernel against its plain version, |err| <= tol*|A||x| elementwise,
+    on a padded and on an unpadded x (a third of the last tile missing); a
+    repeated launch is bit-equal."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    blocks_np, cols_np = _random_pack(nbr, nbc, width, bs, np_dtype, nbr + bs)
+    blocks = torch.as_tensor(blocks_np, device=cuda_device)
+    cols = torch.as_tensor(cols_np, device=cuda_device)
+    x_pad = torch.as_tensor(np.random.RandomState(3).randn(nbc * bs).astype(np_dtype), device=cuda_device)
+    x_len = nbc * bs - bs // 3
+    x_cut = x_pad.clone()
+    x_cut[x_len:] = 0
+    for x, x_ref in ((x_pad, x_pad), (x_cut[:x_len], x_cut), (x_pad[: bs], None)):
+        if x_ref is None:  # x far shorter than the columns in use
+            x_ref = torch.zeros_like(x_pad)
+            x_ref[:bs] = x
+        y_k = tsp.bell_spmv(blocks, cols, x)
+        y_again = tsp.bell_spmv(blocks, cols, x)
+        torch.cuda.synchronize()
+        y_p = tsp.bell_spmv_ref(blocks, cols, x_ref)
+        _assert_kernel_close(y_k, y_p, tol * tsp.bell_spmv_ref(blocks.abs(), cols, x_ref.abs()))
+        assert torch.equal(y_k, y_again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("label,nbr,nbc,width,bs", KERNEL_SHAPES)
+def test_bell_spmv_batched_kernel_shapes_on_card(cuda_device, label, nbr, nbc, width, bs, dtype, tol):
+    """The batched entry point on the same shapes with B = 3: unpadded x as
+    a column slice of a wider tensor (strided rows), repeat bit-equal, and
+    every problem within the tolerance of its own single launch (equal bit
+    for bit only at B = 1: the thread blocks' shares of a batch fall
+    elsewhere than those of one problem)."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    B = 3
+    blocks_np, cols_np = _random_pack(nbr, nbc, width, bs, np_dtype, nbr + bs + 1, batch=B)
+    blocks = torch.as_tensor(blocks_np, device=cuda_device)
+    cols = torch.as_tensor(cols_np, device=cuda_device)
+    x_len = nbc * bs - bs // 3
+    wide = torch.as_tensor(np.random.RandomState(4).randn(B, nbc * bs + 3).astype(np_dtype), device=cuda_device)
+    x = wide[:, :x_len]
+    x_ref = torch.zeros((B, nbc * bs), dtype=dtype, device=cuda_device)
+    x_ref[:, :x_len] = x
+    y_k = tsp.bell_spmv_batched(blocks, cols, x)
+    y_again = tsp.bell_spmv_batched(blocks, cols, x)
+    torch.cuda.synchronize()
+    y_p = tsp.bell_spmv_batched_ref(blocks, cols, x_ref)
+    assert torch.equal(y_k, y_again)
+    limit = tol * tsp.bell_spmv_batched_ref(blocks.abs(), cols, x_ref.abs())
+    _assert_kernel_close(y_k, y_p, limit)
+    for b in range(B):
+        _assert_kernel_close(tsp.bell_spmv(blocks[b], cols[b], x[b]), y_k[b], limit[b])
+
+
+@pytest.mark.cuda
+def test_bell_spmv_kernel_unaligned_pack_on_card(cuda_device):
+    """A pack whose storage starts off an 8-byte boundary takes one
+    element a lane and agrees."""
+    blocks_np, cols_np = _random_pack(6, 5, 3, 64, np.float32, 1)
+    flat = torch.zeros(blocks_np.size + 1, dtype=torch.float32, device=cuda_device)
+    flat[1:] = torch.as_tensor(blocks_np.ravel())
+    blocks = flat[1:].view(blocks_np.shape)
+    assert blocks.data_ptr() % 8 != 0 and blocks.is_contiguous()
+    cols = torch.as_tensor(cols_np, device=cuda_device)
+    x = torch.as_tensor(np.random.RandomState(2).randn(5 * 64).astype(np.float32), device=cuda_device)
+    y_k = tsp.bell_spmv(blocks, cols, x)
+    torch.cuda.synchronize()
+    y_p = tsp.bell_spmv_ref(blocks, cols, x)
+    _assert_kernel_close(y_k, y_p, 1e-5 * tsp.bell_spmv_ref(blocks.abs(), cols, x.abs()))
+
+
+@pytest.mark.cuda
+def test_bell_spmv_kernel_refusals_raise_on_card(cuda_device):
+    """What the kernel does not take raises; nothing falls back."""
+    blocks = torch.zeros((2, 1, 8, 8), device=cuda_device)
+    cols = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    x = torch.zeros(16, device=cuda_device)
+    before = tsp.bell_spmv.launches
+    with pytest.raises(TypeError, match="cols must be int32"):
+        tsp.bell_spmv(blocks, cols.long(), x)
+    with pytest.raises(TypeError, match="x dtype"):
+        tsp.bell_spmv(blocks, cols, x.double())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tsp.bell_spmv(blocks.half(), cols, x.half())
+    with pytest.raises(ValueError, match="unit stride"):
+        tsp.bell_spmv(blocks, cols, torch.zeros(32, device=cuda_device)[::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        tsp.bell_spmv(blocks.transpose(2, 3), cols, x)
+    with pytest.raises(ValueError, match="on cpu"):
+        tsp.bell_spmv(blocks, cols, x.cpu())
+    with pytest.raises(ValueError, match=r"outside \[1, 1024\]"):
+        tsp.bell_spmv(torch.zeros((1, 1, 1025, 1025), device=cuda_device), cols[:1], x)
+    with pytest.raises(ValueError, match="at least one slot"):
+        tsp.bell_spmv(torch.zeros((2, 0, 8, 8), device=cuda_device), cols[:, :0], x)
+    assert tsp.bell_spmv.launches == before
