@@ -18,6 +18,14 @@ Phases, one line each; any failure raises and exits nonzero:
      launch on the padded x must be bit-equal) and the batched dense GEMVs
      gemv_rows / gemv_cols (flagship shapes, B = 1, ragged; also timed
      against torch.bmm with TF32 off; a repeated launch must be bit-equal);
+     the three cone-projection kernels proj_exp / proj_pow / proj_box
+     (rows drawn to hit every regime, at the mixed-cone batches' shapes and
+     at 10^6 cones; the box at (1, 1001) and (512, 1001) under shared and
+     per-row bounds with infinities; agreement to a stated tolerance, a
+     bit-equal repeat, and the geometry of the answer in f64 on the host: p
+     in K, p - v in K*, <p, p - v> = 0); and every projection left as plain
+     tensor code on the card against the CPU in f64, with the library's
+     batched eigh timed per shape;
   4. the main path: SCS(...).solve() under solver_strategy="bell" on the
      30000 x 20000 block-sparse LP of the scs_tpu bench's `bell` cell, f32,
      eps 1e-4, on "cuda"; the kernels' launch counts are zeroed just before
@@ -39,7 +47,22 @@ Phases, one line each; any failure raises and exits nonzero:
      (relative to the objective's largest term) and f64 KKT residuals within 5x the solver's criterion, every dense
      matvec must go through gemv_rows / gemv_cols and none through the SpMV
      kernels (launch counts zeroed just before, read just after); then one
-     full-batch iteration is timed under each direct_solver mode.
+     full-batch iteration is timed under each direct_solver mode;
+  9. the scs_tpu bench's `mixed_cone` cell at its full size: 64 problems
+     over z + l + SOC + PSD + exp + dual exp + power cones from the numpy
+     oracle's planted-optimum generator (tests/oracle.py), f32, eps 1e-4;
+     64/64 must solve with every objective within 1.5e-3 of the planted
+     one, host f64 residuals within 5x the solver's criterion, s in K and y
+     in K* by the oracle's projections, the exp and power projections
+     through their kernels and every dense matvec through gemv_rows /
+     gemv_cols; then a torch.profiler window over two chunks;
+ 10. a mixed-cone batch the card notices: 128 problems of about 5300 x 1770
+     over z + l + a box of 400 bounds + 20 SOCs of 50 + four 32 x 32 PSD
+     blocks + 300 exponential and 100 power cones each (A 4.8 GB in f32;
+     51,200 exp/power cones and 512 matrices per projection), generated in
+     worker processes; the same gates; then a
+     torch.profiler window over two chunks (kernels per iteration, busy and
+     idle share, the shares of eigh, of the cone kernels, of the GEMVs).
 
 Then one JSON line describing the kernels, and last the contract line
 {"ok": true, "device": {...}}. With no CUDA device the script exits
@@ -80,7 +103,14 @@ from scs_tpu_torch.ops.sparse import (
     pack_bell_sym_host,
     stack_bell_host,
 )
-from scs_tpu_torch.tools.flagship import FLAGSHIP, gen_qp_batch, kkt_check_batch
+from scs_tpu_torch.ops import projections as cone_ops
+from scs_tpu_torch.tools import mixed_cone
+from scs_tpu_torch.tools.flagship import (
+    FLAGSHIP,
+    gen_qp_batch,
+    kkt_check_batch,
+    profile_window,
+)
 
 # The scs_tpu bench's `bell` cell (scs_tpu/bench_cli.py:_bell_submetric).
 BELL_M, BELL_N, BELL_DENSITY, BELL_BS, BELL_EPS = 30000, 20000, 0.002, 128, 1e-4
@@ -95,6 +125,12 @@ FLAG_B, FLAG_M, FLAG_N = FLAGSHIP
 FLAG_EPS, FLAG_SEED = 1e-4, 1234
 FLAG_TPU_ITERS = (204, 600)  # mean, max: BENCH_r05.json, TPU v5e — reference only
 DENSE_QP_M, DENSE_QP_N, DENSE_QP_EPS = 300, 200, 1e-6
+# The scs_tpu bench's `mixed_cone` cell (scs_tpu/bench_cli.py:412-509) and the
+# wide mixed-cone batch (scs_tpu_torch/tools/mixed_cone.py).
+MIXED_TPU_ITERS = (351.6, 1200)  # mean, max: BENCH_r05.json, TPU v5e — reference only
+MIXED_OBJ_TOL = 1.5e-3  # the bench's 3-decimal objective check
+WIDE_SEED, WIDE_WORKERS = 4000, 8
+CONE_KERNELS = (cone_ops._proj_exp_batch, cone_ops._proj_pow_batch, cone_ops._proj_box)
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the non-tensor-core rates of the kernels' element types
 HBM_BYTES_PER_S = 3.35e12
@@ -913,24 +949,217 @@ def phase_flagship():
     return g1, g2
 
 
+def phase_kernels_cones():
+    """The cone-projection kernels (proj_exp, proj_pow, proj_box) against
+    their plain versions, and the projections left as plain tensor code on
+    the card against the CPU. Sizes: the exp and power rows one projection
+    of the mixed_cone cell stacks (64 x 20 and 64 x 4), of the wide batch
+    (128 x 300 and 128 x 100), and 10^6."""
+    report = mixed_cone.check_cone_kernels(HBM_BYTES_PER_S, PEAK_FLOPS)
+    eigh_ms = mixed_cone.check_plain_on_card()
+    return report, eigh_ms
+
+
+def _mixed_gates(label, K, data, p_star, solver, res, pool=None, A_rows=None):
+    """The gates of a mixed-cone batch: all solved, objectives against the
+    planted ones, host f64 residuals and cone membership, the projections
+    through their kernels and the matvecs through the GEMV kernels. Returns
+    the worst (pri, dual, gap, dist s, dist y)."""
+    B = len(res)
+    statuses = [r["info"]["status"] for r in res]
+    n_solved = sum(st == "solved" for st in statuses)
+    if n_solved != B:
+        raise AssertionError(
+            f"{label}: {n_solved}/{B} solved; others: {sorted(set(statuses) - {'solved'})}"
+        )
+    err = np.abs(np.array([r["info"]["pobj"] for r in res]) - p_star)
+    if not err.max() < MIXED_OBJ_TOL:
+        raise AssertionError(
+            f"{label}: objective off the planted optimum by {err.max():.3e} (problem {err.argmax()})"
+        )
+    spec = solver.spec
+    for fn, needed in zip(CONE_KERNELS, (spec.ep + spec.ed, len(spec.p), spec.bsize)):
+        if needed and fn.launches <= 0:
+            raise AssertionError(f"{label}: {fn.__name__} launched no kernel")
+    if min(gemv_rows.launches, gemv_cols.launches) <= 0:
+        raise AssertionError(f"{label}: gemv launches {gemv_rows.launches}, {gemv_cols.launches}")
+    if bell_spmv.launches + bell_spmv_batched.launches != 0:
+        raise AssertionError(f"{label}: the dense path launched a block-ELL SpMV kernel")
+    return mixed_cone.check_solutions(
+        K, data, res, mixed_cone.MIXED_EPS, pool=pool, A_rows=A_rows
+    )
+
+
+def _time_phases(solver, reps=5):
+    """Milliseconds of one linear step, one cone step and the projector
+    alone at the full batch, from the solver's state after two warm-up
+    iterations."""
+    core, mats, state = solver.core, solver.mats, solver._states
+    for _ in range(2):
+        state = core._iter_plain(state, mats)
+    n, m = core.n, core.m
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    t_lin, (ut, px, cg_k) = timed(lambda: core._step_lin(state, mats))
+    t_cone, _ = timed(lambda: core._step_cone(state, ut, px, cg_k, mats))
+    z = -(2.0 * ut - state.w)[:, n : n + m]
+    t_proj, _ = timed(lambda: core._proj(z, mats.bl, mats.bu))
+    return t_lin, t_cone, t_proj
+
+
+def _solve_mixed(label, K, data):
+    """Set up and solve one mixed-cone batch on the card; the launch counts
+    are zeroed just before the solve. Returns (solver, results, setup s,
+    solve s, per-phase ms)."""
+    t0 = time.perf_counter()
+    solver = scs_tpu_torch.BatchedSCS(
+        data, K, dtype="float32", eps_abs=mixed_cone.MIXED_EPS, eps_rel=mixed_cone.MIXED_EPS,
+        max_iters=20000, scale=1.0, device="cuda",
+    )
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    phases = _time_phases(solver)
+    solver.reset()
+    for f in (*CONE_KERNELS, gemv_rows, gemv_cols, bell_spmv, bell_spmv_batched):
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = solver.solve()
+    torch.cuda.synchronize()
+    return solver, res, setup, time.perf_counter() - t0, phases
+
+
+def _mixed_report(tag, label, solver, res, p_star, setup, solve, phases, worst, extra=""):
+    iters = np.array([r["info"]["iter"] for r in res])
+    err = np.abs(np.array([r["info"]["pobj"] for r in res]) - p_star)
+    exp_l, pow_l, box_l = (f.launches for f in CONE_KERNELS)
+    print(
+        f"[{tag}] {label}, f32 on cuda: {len(res)}/{len(res)} solved; setup {setup:.3f} s, solve "
+        f"{solve:.3f} s; iterations mean {iters.mean():.1f}, max {iters.max()}{extra}; "
+        f"device_prob_iters {solver.device_prob_iters} (sum of iterations {iters.sum()}); bucket "
+        f"ladder {solver.bucket_ladder}; launches proj_exp {exp_l}, proj_pow {pow_l}, proj_box "
+        f"{box_l}, gemv_rows {gemv_rows.launches}, gemv_cols {gemv_cols.launches}, SpMV 0; max "
+        f"|pobj - p*| {err.max():.2e} (limit {MIXED_OBJ_TOL:g}); worst host f64 residual / limit: pri "
+        f"{worst[0]:.3f}, dual {worst[1]:.3f}, gap {worst[2]:.3f}; distance of s from K "
+        f"{worst[3]:.2e}, of y from K* {worst[4]:.2e} (relative; the oracle's projections); one "
+        f"full-batch iteration: linear step {phases[0]:.3f} ms, cone step {phases[1]:.3f} ms, of "
+        f"it the projector {phases[2]:.3f} ms"
+    )
+    return exp_l, pow_l, box_l
+
+
+def _profile_report(tag, solver):
+    """A torch.profiler window over two chunks of a solved BatchedSCS, reset
+    first: kernels per iteration, busy and idle share, the shares of the
+    GEMV kernels, of the three cone kernels and of eigh's kernels."""
+    solver.reset()
+    plain_ms, prof_ms, busy, n_kernels, rows = profile_window(solver)
+    iters = 2 * int(solver.stg.check_interval)
+
+    def share(*pats):
+        return sum(ms for name, ms, _ in rows if any(p in name.lower() for p in pats))
+
+    cones = share("proj_exp", "proj_pow", "proj_box")
+    gemv = share("gemv_")
+    # the library's symmetric eigensolver: tridiagonalization, divide and
+    # conquer or Jacobi sweeps, back-transformation
+    eigh = share("syev", "heev", "jacobi", "sytrd", "ormtr", "ormqr", "orgtr", "stedc", "steqr",
+                 "laed", "larf", "latrd", "lasr")
+    print(
+        f"[{tag}] window: 2 chunks = {iters} lockstep iterations at B = {solver.B}: {plain_ms:.1f} "
+        f"ms unprofiled, {prof_ms:.1f} ms profiled; {n_kernels} kernels ({n_kernels / iters:.1f} "
+        f"per iteration), busy {busy:.1f} ms = {100 * busy / plain_ms:.1f}% of the unprofiled wall "
+        f"(idle {100 - 100 * busy / plain_ms:.1f}%); of busy: gemv kernels "
+        f"{100 * gemv / busy:.1f}%, the three cone kernels {100 * cones / busy:.1f}%, eigh (by "
+        f"kernel name) {100 * eigh / busy:.1f}%"
+    )
+    for name, ms, count in rows[:12]:
+        print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{count:<6d} {name[:90]}")
+
+
+def phase_mixed_cone():
+    """The scs_tpu bench's mixed_cone cell at its full size."""
+    K = mixed_cone.MIXED_K
+    data, p_star = mixed_cone.gen_mixed_batch(K, mixed_cone.MIXED_B, mixed_cone.MIXED_SEED)
+    solver, res, setup, solve, phases = _solve_mixed("mixed_cone", K, data)
+    worst = _mixed_gates("mixed_cone", K, data, p_star, solver, res)
+    B, m, n = data["A"].shape
+    launches = _mixed_report(
+        9, f"mixed_cone {B} x {m}x{n} over {K}", solver, res, p_star, setup, solve, phases, worst,
+        extra=f" (BENCH_r05 TPU v5e run, reference only: mean {MIXED_TPU_ITERS[0]}, max "
+              f"{MIXED_TPU_ITERS[1]})",
+    )
+    _profile_report(9, solver)
+    return launches
+
+
+def phase_mixed_wide():
+    """The wide mixed-cone batch: problems planted by the numpy oracle (a
+    second a problem) in worker processes, solved as one batch and checked
+    on the host by the same workers; then a profiler window over two
+    chunks."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    K = mixed_cone.wide_cone()
+    with ProcessPoolExecutor(
+        WIDE_WORKERS, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        return _mixed_wide(K, pool)
+
+
+def _mixed_wide(K, pool):
+    t0 = time.perf_counter()
+    data, p_star, A_rows = mixed_cone.collect_mixed_batch(
+        mixed_cone.gen_mixed_batch(K, mixed_cone.WIDE_B, WIDE_SEED, pool=pool)
+    )
+    B, m, n = data["A"].shape
+    n_exp, n_pow = K["ep"] + K["ed"], len(K["p"])
+    print(
+        f"[10] mixed_cone_wide: {B} problems of {m}x{n} generated in {WIDE_WORKERS} worker "
+        f"processes in {time.perf_counter() - t0:.1f} s; nothing cut: A "
+        f"{data['A'].nbytes / 1e9:.2f} GB "
+        f"in f32, {B * n_exp} exponential and {B * n_pow} power cones, {B * len(K['s'])} "
+        f"matrices of {K['s'][0]} x {K['s'][0]} and {B} boxes of {len(K['bu'])} bounds per projection"
+    )
+    solver, res, setup, solve, phases = _solve_mixed("mixed_cone_wide", K, data)
+    worst = _mixed_gates("mixed_cone_wide", K, data, p_star, solver, res, pool, A_rows)
+    launches = _mixed_report(
+        10, f"mixed_cone_wide {B} x {m}x{n}", solver, res, p_star, setup, solve, phases, worst
+    )
+    _profile_report(10, solver)
+    return launches
+
+
 def main():
     name = phase_device()
+    if sys.argv[1:] == ["--bell-profile"]:
+        phase_build()
+        bell_profile(gen_bell_lp(BELL_M, BELL_N, BELL_DENSITY))
+        return
     phase_build()
     bench = gen_bell_lp(BELL_M, BELL_N, BELL_DENSITY)
-    if sys.argv[1:] == ["--bell-profile"]:
-        bell_profile(bench)
-        return
     qp = gen_bell_qp(QP_M, QP_N, 0.02)
     batch = gen_bell_batch(BATCH_B, BATCH_M, BATCH_N, BATCH_DENSITY, BATCH_WIDTH, BATCH_SEED)
     max_err, times, single_pack, shapes = phase_kernels(bench, qp)
     max_err_b, times_b, batch_shape = phase_kernels_batched(batch, single_pack)
     max_err_g, gemv_flag = phase_kernels_dense()
+    cone_report, eigh_ms = phase_kernels_cones()
     launches = phase_main(bench)
     phase_qp(qp)
     launches_b = phase_batch(batch)
     del bench, qp, batch
     phase_dense_single()
     launches_g1, launches_g2 = phase_flagship()
+    cone_launches_9 = phase_mixed_cone()
+    cone_launches_10 = phase_mixed_wide()
 
     f32 = torch.float32
     spmv_src = "scs_tpu_torch/ops/csrc/bell_spmv.cu"
@@ -967,6 +1196,23 @@ def main():
         entry("gemv_cols", gemv_src, "tools/gemv_proto.py:100", launches_g2,
               max_err_g["cols"], *gemv_flag["cols"][1:3], _gemv_bound(flag_A, FLAG_N, f32),
               gemv_flag["cols"][3], shape=f"A {flag_A} f32"),
+        *(
+            entry(kname, "scs_tpu_torch/ops/csrc/cone_proj.cu", replaces, n10,
+                  cone_report[kname]["max_abs_err"], cone_report[kname]["ms"],
+                  cone_report[kname]["plain_ms"],
+                  (cone_report[kname]["bound_ms"], cone_report[kname]["bound_by"]), None,
+                  shape=cone_report[kname]["shape"] + " f32", launches_mixed_cone=n9,
+                  note="launches: the wide mixed-cone batch's solve (launches_mixed_cone: the "
+                       "mixed_cone cell's). No Pallas kernel existed: XLA fused this fori_loop "
+                       "into the solver's program; in eager PyTorch it would be one launch per "
+                       "arithmetic line of every loop pass. No single PyTorch call computes it.")
+            for kname, replaces, n9, n10 in zip(
+                ("proj_exp", "proj_pow", "proj_box"),
+                ("scs_tpu/ops/projections.py:289", "scs_tpu/ops/projections.py:403",
+                 "scs_tpu/ops/projections.py:67"),
+                cone_launches_9, cone_launches_10,
+            )
+        ),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 # C entry points per kernel source: name -> argtypes. Pointers and the
 # stream are c_void_p (a plain int would be cut to 32 bits); sizes c_int.
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SYMBOLS = {
     "bell_spmv": {
         # (blocks, cols, x, y, nbr, width, bs, x_len, stream)
@@ -51,6 +51,17 @@ _SYMBOLS = {
         # (M, u, y, scratch, batch, rows, cols, splits, stream)
         "gemv_cols_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
         "gemv_cols_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    },
+    "cone_proj": {
+        # (v, sign or null, out, evals or null, k, explim, stream)
+        "proj_exp_f32": [_VP, _VP, _VP, _VP, _I, _D, _VP],
+        "proj_exp_f64": [_VP, _VP, _VP, _VP, _I, _D, _VP],
+        # (v, a, sign or null, out, iters or null, k, stream)
+        "proj_pow_f32": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
+        "proj_pow_f64": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
+        # (v, bl, bu, out, iters or null, batch, nb, bound_stride, stream)
+        "proj_box_f32": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+        "proj_box_f64": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     },
 }
 

@@ -1,0 +1,655 @@
+"""Mixed-cone batches and the cone-projection kernels' checks.
+
+What chip_smoke.py's cone phases and the tests share:
+
+  * MIXED_K, wide_cone(): the cones of the two mixed-cone batches — the
+    scs_tpu bench's `mixed_cone` cell (scs_tpu/bench_cli.py:412-509) and a
+    wider one with thousands of exponential and power cones per problem;
+  * gen_mixed_batch(): planted-optimum problems from tests/oracle.py (numpy
+    and scipy only), c scaled to unit norm as the bench does; in worker
+    processes when asked, one seed per problem;
+  * check_solutions(): host f64 residuals against the solver's criterion
+    and cone membership of s and y by the oracle's own projections;
+  * exp_rows(), pow_rows(), box_case(): seeded numpy inputs that hit every
+    regime of the three scalar-iteration projections;
+  * geometry_*(): the variational test of a projection p of v in f64 — p in
+    K, p - v in K*, <p, p - v> = 0 — with the oracle's membership functions;
+  * check_cone_kernels(), check_plain_on_card(): each kernel of
+    csrc/cone_proj.cu against its plain version on the card, and each plain
+    projection on the card against the CPU.
+
+    python -m scs_tpu_torch.tools.mixed_cone [B]
+
+builds the kernels, runs the kernel checks and solves the bench's cell (B
+problems, default 64) on the card, printing iterations and times.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# The scs_tpu bench's `mixed_cone` cell: B = 64 problems over this cone, f32,
+# eps 1e-4, n = m // 3, density 0.1, RandomState(3000).
+MIXED_K = {
+    "z": 10, "l": 15, "q": [5, 10, 0, 1], "s": [3, 4, 0, 0, 1, 10],
+    "ep": 10, "ed": 10, "p": [-0.25, 0.5, 0.75, -0.33],
+}
+MIXED_B, MIXED_SEED, MIXED_EPS = 64, 3000, 1e-4
+WIDE_B = 128
+
+
+def wide_cone(seed=7, bounds=400, ep=200, ed=100, powers=100):
+    """The wide batch's cone: 100 equalities, 500 inequalities, a box of
+    `bounds` bounds (a fifth of each side infinite), 20 second-order cones
+    of 50, four 32 x 32 PSD blocks, `ep` + `ed` exponential cones and
+    `powers` power cones with powers drawn from (-0.9, 0.9)."""
+    rng = np.random.RandomState(seed)
+    bu = np.where(rng.rand(bounds) < 0.2, np.inf, 0.5 + rng.rand(bounds))
+    bl = np.where(rng.rand(bounds) < 0.2, -np.inf, -0.5 - rng.rand(bounds))
+    p = rng.uniform(0.1, 0.9, powers) * np.where(rng.rand(powers) < 0.5, -1.0, 1.0)
+    return {
+        "z": 100, "l": 500, "bu": bu.tolist(), "bl": bl.tolist(), "q": [50] * 20,
+        "s": [32] * 4, "ep": ep, "ed": ed, "p": p.tolist(),
+    }
+
+
+def _oracle():
+    """tests/oracle.py of this checkout: the independent numpy oracle
+    (generators, projections and membership tests for every cone)."""
+    tests_dir = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "tests"
+    )
+    if tests_dir not in sys.path:
+        sys.path.append(tests_dir)
+    import oracle  # noqa: PLC0415
+
+    return oracle
+
+
+def _gen_one(args):
+    """One planted-optimum problem (worker-process entry point)."""
+    K, n, density, seed = args
+    oracle = _oracle()
+    with np.errstate(over="ignore"):
+        data, p_star, _ = oracle.gen_feasible(
+            K, n=n, density=density, rng=np.random.RandomState(seed)
+        )
+    k = np.linalg.norm(data["c"])
+    return data["A"].astype(np.float32), data["b"], data["c"] / k, p_star / k
+
+
+def gen_mixed_batch(K, B, seed, density=0.1, pool=None):
+    """B planted-optimum problems over K with n = m // 3 and unit-norm c.
+    Without a pool: one RandomState(seed) drawn from problem after problem,
+    as scs_tpu's bench does. With a pool (a concurrent.futures executor):
+    problem i from RandomState(seed + i), generated in the workers; returns
+    the futures' list for collect_mixed_batch()."""
+    oracle = _oracle()
+    m = oracle.cone_dims(K)
+    n = m // 3
+    if pool is not None:
+        return [pool.submit(_gen_one, (K, n, density, seed + i)) for i in range(B)]
+    rng = np.random.RandomState(seed)
+    As, bs, cs, stars = [], [], [], []
+    for _ in range(B):
+        with np.errstate(over="ignore"):
+            data, p_star, _ = oracle.gen_feasible(K, n=n, density=density, rng=rng)
+        k = np.linalg.norm(data["c"])
+        As.append(np.asarray(data["A"].todense()))
+        bs.append(data["b"])
+        cs.append(data["c"] / k)
+        stars.append(p_star / k)
+    return {"A": np.stack(As), "b": np.stack(bs), "c": np.stack(cs)}, np.array(stars)
+
+
+def collect_mixed_batch(futures):
+    """The batch of gen_mixed_batch(pool=...): A as one float32 (B, m, n)
+    array (the solver's type; a float64 copy would double the host's
+    memory), b, c in float64, the planted objectives, and the problems'
+    sparse float32 matrices (for check_solutions)."""
+    first = futures[0].result()
+    A = np.empty((len(futures),) + first[0].shape, np.float32)
+    bs, cs, stars, A_rows = [], [], [], []
+    for i, fut in enumerate(futures):
+        Ai, b, c, p_star = fut.result()
+        A[i] = Ai.toarray()
+        A_rows.append(Ai)
+        bs.append(b)
+        cs.append(c)
+        stars.append(p_star)
+    return {"A": A, "b": np.stack(bs), "c": np.stack(cs)}, np.array(stars), A_rows
+
+
+def _check_one(args):
+    """Host f64 check of one solution (worker-process entry point): the
+    residuals over the solver's criterion (pri, dual, gap), and the
+    distance of s from K and of y from K*, by the oracle's projections,
+    relative to 1 + the vector's norm."""
+    K, A, b, c, x, y, s, eps = args
+    oracle = _oracle()
+    A = np.asarray(A, np.float64) if isinstance(A, np.ndarray) else A.astype(np.float64)
+    x, y, s = (np.asarray(v, np.float64) for v in (x, y, s))
+    Ax, Aty = A @ x, A.T @ y
+    nrm = np.linalg.norm
+    pri = nrm(Ax + s - b) / (eps + eps * max(nrm(Ax), nrm(s), nrm(b)))
+    dual = nrm(Aty + c) / (eps + eps * max(nrm(Aty), nrm(c)))
+    gap = abs(c @ x + b @ y) / (eps + eps * max(abs(c @ x), abs(b @ y)))
+    with np.errstate(over="ignore"):
+        ds = nrm(s - oracle.proj_cone(s, K)) / (1 + nrm(s))
+        dy = nrm(y - oracle.proj_dual_cone(y, K)) / (1 + nrm(y))
+    return pri, dual, gap, ds, dy
+
+
+def check_solutions(K, data, results, eps, margin=5.0, pool=None, A_rows=None, cone_margin=50.0):
+    """Every solution's f64 residuals within margin x the solver's criterion,
+    s within cone_margin x eps of K and y of K* (relative, by the oracle's
+    projections; the returned s and y are iterates converged to eps, so
+    they sit in the cones to a multiple of eps and not to rounding: the PSD
+    blocks of scs_tpu's own f32 solutions of the mixed_cone cell are 2e-4
+    off at eps 1e-4, those of the wide batch 1e-3). A_rows: the problems' matrices one by one (sparse, to
+    hand to a pool's workers), default the rows of data["A"]. Returns the
+    worst (pri, dual, gap, dist_s, dist_y); raises on a violation."""
+    A_rows = data["A"] if A_rows is None else A_rows
+    jobs = [
+        (K, A_rows[i], data["b"][i], data["c"][i], r["x"], r["y"], r["s"], eps)
+        for i, r in enumerate(results)
+    ]
+    rows = list(pool.map(_check_one, jobs)) if pool is not None else [_check_one(j) for j in jobs]
+    worst = np.max(np.asarray(rows), axis=0)
+    for i, (pri, dual, gap, ds, dy) in enumerate(rows):
+        if max(pri, dual, gap) > margin or max(ds, dy) > cone_margin * eps:
+            raise AssertionError(
+                f"problem {i}: pri/lim {pri:.3e}, dual/lim {dual:.3e}, gap/lim {gap:.3e}, "
+                f"dist(s, K) {ds:.3e}, dist(y, K*) {dy:.3e}"
+            )
+    return tuple(float(w) for w in worst)
+
+
+# ---------------------------------------------------------------------------
+# Inputs for the three scalar-iteration projections
+# ---------------------------------------------------------------------------
+
+
+def exp_rows(k, seed=0):
+    """k rows for the exponential-cone projection, float64: a seventh each
+    inside the cone, in the polar cone, analytic (r, s < 0), generic
+    (bisection) at unit scale, generic at magnitudes 1e-6..1e6, near the
+    boundary, and rho -> 0 boundary rows (s > 0, t barely under s*exp(r/s))."""
+    rng = np.random.RandomState(seed)
+    v = rng.randn(k, 3)
+    kind = np.arange(k) % 7
+    s_in = np.abs(v[:, 1]) + 0.1
+    inside = np.stack([v[:, 0], s_in, s_in * np.exp(v[:, 0] / s_in) * (1.5 + np.abs(v[:, 2]))], 1)
+    u = -np.abs(v[:, 0]) - 0.1
+    polar = -np.stack([u, v[:, 1], -u * np.exp(v[:, 1] / u) / np.e * (1.5 + np.abs(v[:, 2]))], 1)
+    analytic = np.stack([-np.abs(v[:, 0]) - 0.01, -np.abs(v[:, 1]) - 0.01, v[:, 2]], 1)
+    scaled = v * 10.0 ** rng.uniform(-6, 6, (k, 1))
+    near = np.stack([v[:, 0], s_in, s_in * np.exp(v[:, 0] / s_in) * (1 - 1e-3 * rng.rand(k))], 1)
+    edge = np.stack([v[:, 0], s_in, s_in * np.exp(v[:, 0] / s_in) * (1 - 1e-7 * rng.rand(k))], 1)
+    out = v.copy()
+    for i, rows in enumerate((inside, polar, analytic, v, scaled, near, edge)):
+        out[kind == i] = rows[kind == i]
+    return out
+
+
+def pow_rows(k, seed=0):
+    """k rows and powers for the power-cone projection, float64: a fifth
+    each inside, in the polar cone, generic at unit scale, generic at
+    magnitudes 1e-6..1e6, and with z = 0; powers from (0.05, 0.95); and a
+    sign per row (a third of the rows go to the dual cone)."""
+    rng = np.random.RandomState(seed)
+    v = rng.randn(k, 3)
+    a = rng.uniform(0.05, 0.95, k)
+    kind = np.arange(k) % 5
+    x, y = np.abs(v[:, 0]) + 0.1, np.abs(v[:, 1]) + 0.1
+    inside = np.stack([x, y, x**a * y ** (1 - a) * rng.uniform(-0.9, 0.9, k)], 1)
+    polar = np.stack([-x, -y, (x / a) ** a * (y / (1 - a)) ** (1 - a) * rng.uniform(-0.9, 0.9, k)], 1)
+    scaled = v * 10.0 ** rng.uniform(-6, 6, (k, 1))
+    flat = np.stack([v[:, 0], v[:, 1], np.zeros(k)], 1)
+    out = v.copy()
+    for i, rows in enumerate((inside, polar, v, scaled, flat)):
+        out[kind == i] = rows[kind == i]
+    sign = np.where(np.arange(k) % 3 == 0, -1.0, 1.0)
+    return out, a, sign
+
+
+def box_case(B, nb, seed=0, per_row=False):
+    """v (B, nb + 1) and bounds for the box-cone projection, float64: a
+    fifth of each side infinite; bounds (nb,) shared or (B, nb)."""
+    rng = np.random.RandomState(seed)
+    shape = (B, nb) if per_row else (nb,)
+    bu = np.where(rng.rand(*shape) < 0.2, np.inf, rng.rand(*shape) * 2.0)
+    bl = np.where(rng.rand(*shape) < 0.2, -np.inf, -rng.rand(*shape) * 2.0)
+    v = rng.randn(B, nb + 1) * 2.0
+    v[:, 0] = rng.randn(B) * np.sqrt(nb)  # t on the scale of ||s||: t > 0, t -> 0 and t = 0 all occur
+    return v, bl, bu
+
+
+# ---------------------------------------------------------------------------
+# The variational test of a projection, in f64 on the host
+# ---------------------------------------------------------------------------
+
+
+def _geometry(v, p, in_cone, in_dual, proj_cone, proj_dual, tol):
+    """The variational test over rows (k, 3), float64: p in K, p - v in K*
+    and <p, p - v> = 0, each relative to 1 + |v|. Membership is the oracle's
+    membership function at tolerance tol or, where that refuses a point
+    (its tolerance is not a distance: a coordinate off by one rounding can
+    sit under an exponential), a distance from the oracle's own projection
+    within tol. Returns (the mask of rows that fail, worst |<p, p - v>| /
+    (1 + |v|)^2)."""
+    bad, worst = [], 0.0
+    for vi, pi in zip(v, p):
+        scale = 1.0 + np.abs(vi).max()
+        ps, qs = pi / scale, (pi - vi) / scale
+        ok = np.all(np.isfinite(pi))
+        ok = ok and (in_cone(ps, tol) or np.linalg.norm(ps - proj_cone(ps)) <= tol)
+        ok = ok and (in_dual(qs, tol) or np.linalg.norm(qs - proj_dual(qs)) <= tol)
+        bad.append(not ok)
+        worst = max(worst, abs(ps @ qs))
+    return np.array(bad, bool), worst
+
+
+def geometry_exp(v, p, sign=None, tol=1e-5):
+    """The test for rows projected onto the exponential cone (sign > 0 or
+    None) or its dual (sign < 0)."""
+    oracle = _oracle()
+    v, p = np.asarray(v, np.float64), np.asarray(p, np.float64)
+    dual = np.zeros(len(v), bool) if sign is None else np.asarray(sign) < 0
+    proj = oracle.proj_exp
+    proj_d = lambda w: w + oracle.proj_exp(-w)  # noqa: E731
+    with np.errstate(all="ignore"):
+        b1, w1 = _geometry(v[~dual], p[~dual], oracle.in_exp, oracle.in_exp_dual, proj, proj_d, tol)
+        b2, w2 = _geometry(v[dual], p[dual], oracle.in_exp_dual, oracle.in_exp, proj_d, proj, tol)
+    bad = np.zeros(len(v), bool)
+    bad[~dual], bad[dual] = b1, b2
+    return bad, max(w1, w2)
+
+
+def geometry_pow(v, p, a, sign=None, tol=1e-5):
+    """The test for rows projected onto the power cone K_a[row] or its dual."""
+    oracle = _oracle()
+    v, p = np.asarray(v, np.float64), np.asarray(p, np.float64)
+    dual = np.zeros(len(v), bool) if sign is None else np.asarray(sign) < 0
+    bad, worst = [], 0.0
+    with np.errstate(all="ignore"):
+        for vi, pi, ai, di in zip(v, p, np.asarray(a, np.float64), dual):
+            fns = (
+                lambda w, t, ai=ai: oracle.in_pow(w, ai, t),
+                lambda w, t, ai=ai: oracle.in_pow_dual(w, ai, t),
+                lambda w, ai=ai: oracle.proj_pow(w, ai),
+                lambda w, ai=ai: w + oracle.proj_pow(-w, ai),
+            )
+            if di:
+                fns = (fns[1], fns[0], fns[3], fns[2])
+            b, w = _geometry(vi[None], pi[None], *fns, tol)
+            bad.append(b[0])
+            worst = max(worst, w)
+    return np.array(bad, bool), worst
+
+
+def geometry_box(v, p, bl, bu, tol=1e-5):
+    """Rows (t, s) projected onto the box cone: p in K (t >= 0, bl t <= s <=
+    bu t) and p no farther from v than the oracle's golden-section answer,
+    relative to 1 + |v|. Returns (the mask of rows that fail, worst excess
+    distance)."""
+    oracle = _oracle()
+    v, p = np.asarray(v, np.float64), np.asarray(p, np.float64)
+    bad, worst = [], 0.0
+    for i, (vi, pi) in enumerate(zip(v, p)):
+        lo = np.asarray(bl[i] if np.ndim(bl) == 2 else bl, np.float64)
+        hi = np.asarray(bu[i] if np.ndim(bu) == 2 else bu, np.float64)
+        scale = 1.0 + np.abs(vi).max()
+        t, s = pi[0], pi[1:]
+        with np.errstate(invalid="ignore"):
+            lo_t = np.where(np.isfinite(lo), lo * t, -np.inf)
+            hi_t = np.where(np.isfinite(hi), hi * t, np.inf)
+        inside = t >= 0 and np.all(s >= lo_t - tol * scale) and np.all(s <= hi_t + tol * scale)
+        with np.errstate(invalid="ignore"):
+            ref = oracle.proj_box(vi, lo, hi)
+        excess = (np.linalg.norm(pi - vi) - np.linalg.norm(ref - vi)) / scale
+        bad.append(not inside or excess > tol)
+        worst = max(worst, excess)
+    return np.array(bad, bool), worst
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# |kernel - plain| <= KERNEL_TOL * max(1, |v|_inf) per row. The two run the
+# same operations in the same order, but nvcc contracts a*b+c into FMAs and
+# its log/exp differ from the library's by an ulp; a flipped comparison in
+# the bisection then ends on another end of a bracket of 8 eps * max(1, rho),
+# rho up to |v|, and the cone's curvature carries that into s and t. On a
+# few rows the f32 Newton iteration has not settled after its fixed count
+# (the plain f32 version is itself off its f64 run by 1e-2 of |v| there) and
+# a rounding is amplified: at most STRAY_ROWS of the rows may exceed
+# KERNEL_TOL, and none STRAY_TOL.
+KERNEL_TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
+STRAY_ROWS = 1e-3
+STRAY_TOL = {torch.float32: 5e-2, torch.float64: 1e-6}
+# |<p, p - v>| / (1 + |v|)^2 of the kernel's answer, in f64 on the host
+INNER_TOL = {torch.float32: 5e-3, torch.float64: 1e-8}
+# operations per pass, counted from the plain versions' arithmetic lines
+# (a log, exp, sqrt or division as one operation each)
+EXP_OPS_PER_NEWTON, EXP_OPS_PER_SOLVE = 14, 12
+POW_OPS_PER_NEWTON = 45
+BOX_OPS_PER_ELEMENT = 12
+
+
+def _time_ms(fn, reps=10):
+    """Median over `reps` CUDA-event pairs of one call, after a warm-up."""
+    import statistics  # noqa: PLC0415
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _count_kernels(fn):
+    """Kernels one call of fn launches on the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(
+        ev.count for ev in prof.key_averages()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+    )
+
+
+def _row_err(out_k, out_p, v):
+    """Per row: max |kernel - plain| over max(1, |v|_inf)."""
+    scale = v.abs().amax(dim=-1).clamp_min(1.0)
+    return (out_k - out_p).abs().amax(dim=-1) / scale
+
+
+def _bound_ms(n_bytes, n_ops, dtype, hbm, peak):
+    by, op = n_bytes / hbm, n_ops / peak[dtype]
+    return max(by, op) * 1e3, "bytes" if by >= op else "operations"
+
+
+# rows (exp, power) and (B, bounds, per-row bounds?) cases of the kernel
+# checks: what one projection of the mixed_cone cell stacks (64 problems x
+# 20 exponential and x 4 power cones), what the wide batch stacks (128 x 300
+# and x 100; its box: 128 problems of 400 bounds), the cell's exponential
+# cones of one kind alone (640), and 10^6
+EXP_SIZES = (640, 1280, 38400, 1_000_000)
+POW_SIZES = (256, 12800, 1_000_000)
+BOX_CASES = ((128, 400, True), (512, 1000, True), (512, 1000, False), (1, 1000, False))
+REPORT_AT = {"proj_exp": 38400, "proj_pow": 12800, "proj_box": (128, 400, True)}
+
+
+def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_sizes=POW_SIZES,
+                       box_cases=BOX_CASES, report_at=None, geometry_rows=2100, plain_reps=2,
+                       log=print):
+    """proj_exp, proj_pow and proj_box against their plain versions on the
+    card, f32 and f64: the row-wise limit KERNEL_TOL, a bit-equal repeat,
+    the geometry of the kernel's answer in f64 on the host (on at most
+    `geometry_rows` rows of a case; it must hold wherever it holds for the
+    plain version's answer: on a few extreme rows the algorithm itself, and
+    the oracle's, stop short of the projection), CUDA-event times of kernel and plain
+    version, and the bound from the passes this run's data needed. Returns
+    {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    "shape"}} in f32 at the sizes of `report_at` (default REPORT_AT, the
+    wide batch's shapes)."""
+    report_at = REPORT_AT if report_at is None else report_at
+    from ..ops import projections as pr  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    report = {}
+
+    def both(geometry, out_k, out_p, sub, *args, **kw):
+        """The geometry of the kernel's and of the plain version's answer on
+        rows `sub`: (rows where only the kernel's fails, rows where both
+        fail, the kernel's worst inner product or excess distance)."""
+        as_np = lambda t: t[sub].double().cpu().numpy()  # noqa: E731
+        bad_k, worst = geometry(as_np(out_k), *args, **kw)
+        bad_p, _ = geometry(as_np(out_p), *args, **kw)
+        return int((bad_k & ~bad_p).sum()), int((bad_k & bad_p).sum()), worst
+
+    def finish(name, label, dtype, v, out_k, out_p, geo, k_ms, p_ms, bound, passes, key):
+        bad, bad_both, worst = geo
+        rows = _row_err(out_k, out_p, v)
+        err, n_stray = float(rows.max()), int((rows > KERNEL_TOL[dtype]).sum())
+        abs_err = float((out_k - out_p).abs().max())
+        faults = []
+        if not bool(torch.isfinite(out_k).all()):
+            faults.append("the kernel returned a non-finite value")
+        if n_stray > STRAY_ROWS * rows.numel() or not err <= STRAY_TOL[dtype]:
+            faults.append(
+                f"kernel disagrees with the plain version: {n_stray} of {rows.numel()} rows "
+                f"over {KERNEL_TOL[dtype]:g} of max(1, |v|), worst {err:.3e}"
+            )
+        if bad or not worst <= INNER_TOL[dtype]:
+            faults.append(
+                f"{bad} rows of the kernel's answer fail cone membership where the plain "
+                f"version's pass; worst |<p, p - v>| or excess distance {worst:.3e}"
+            )
+        if faults:
+            raise AssertionError(f"{name} {label} {dtype}: " + "; ".join(faults))
+        log(
+            f"[3] {name} {label} {str(dtype)[6:]}: max |kernel - plain| {err:.3e} of max(1, |v|), "
+            f"{n_stray} rows over {KERNEL_TOL[dtype]:g} (absolute {abs_err:.3e}), repeat bit-equal; f64 "
+            f"geometry of the kernel's answer: p in K and p - v in K* on every row checked but "
+            f"{bad_both} where the plain version's fails too, worst |<p, p - v>| or excess "
+            f"distance {worst:.2e}; {passes}; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.2f} ms, bound {bound[0]:.6f} ms by {bound[1]}"
+        )
+        if key:
+            report[name] = {
+                "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "shape": label,
+            }
+
+    for dtype in (torch.float32, torch.float64):
+        item = 4 if dtype == torch.float32 else 8
+        # membership in f64 is certified to the oracle's own resolution (its
+        # bisection ends at ~1e-6 of the point), no further
+        geo_tol = 1e-4 if dtype == torch.float32 else 3e-6
+        for k in exp_sizes:
+            sub = slice(0, min(k, geometry_rows))
+            # exponential cone, a third of the rows to the dual cone
+            v_np = exp_rows(k, seed=k % 1000)
+            sign_np = np.where(np.arange(k) % 3 == 0, -1.0, 1.0)
+            v_np = v_np * sign_np[:, None]  # so that every regime reaches both cones
+            v = torch.as_tensor(v_np, dtype=dtype, device=dev)
+            sign = torch.as_tensor(sign_np, dtype=dtype, device=dev)
+            evals = torch.zeros(k, dtype=torch.int32, device=dev)
+            out_k = pr._proj_exp_batch(v, sign, evals_out=evals)
+            if not torch.equal(out_k, pr._proj_exp_batch(v, sign)):
+                raise AssertionError(f"proj_exp k={k} {dtype}: a repeated launch differs")
+            out_p = pr._signed(pr._proj_exp_batch_ref, v, sign)
+            torch.cuda.synchronize()
+            geo = both(
+                lambda p: geometry_exp(v[sub].double().cpu().numpy(), p, sign_np[sub], tol=geo_tol),
+                out_k, out_p, sub,
+            )
+            n_solves = int(evals.sum())
+            ops = n_solves * (pr.EXP_NEWTON_ITERS * EXP_OPS_PER_NEWTON + EXP_OPS_PER_SOLVE)
+            finish(
+                "proj_exp", f"(k={k}, 3)", dtype, v, out_k, out_p, geo,
+                _time_ms(lambda: pr._proj_exp_batch(v, sign)),
+                _time_ms(lambda: pr._signed(pr._proj_exp_batch_ref, v, sign), plain_reps),
+                _bound_ms(k * 7 * item, ops, dtype, hbm_bytes_per_s, peak_flops),
+                f"{n_solves} inner Newton solves in all, at most {int(evals.max())} a row",
+                k == report_at["proj_exp"] and dtype == torch.float32,
+            )
+        for k in pow_sizes:
+            sub = slice(0, min(k, geometry_rows))
+            v_np, a_np, sign_np = pow_rows(k, seed=k % 1000 + 1)
+            v = torch.as_tensor(v_np, dtype=dtype, device=dev)
+            a = torch.as_tensor(a_np, dtype=dtype, device=dev)
+            sign = torch.as_tensor(sign_np, dtype=dtype, device=dev)
+            iters = torch.zeros(k, dtype=torch.int32, device=dev)
+            out_k = pr._proj_pow_batch(v, a, sign, iters_out=iters)
+            if not torch.equal(out_k, pr._proj_pow_batch(v, a, sign)):
+                raise AssertionError(f"proj_pow k={k} {dtype}: a repeated launch differs")
+            plain = lambda: pr._signed(lambda w: pr._proj_pow_batch_ref(w, a), v, sign)  # noqa: E731
+            out_p = plain()
+            torch.cuda.synchronize()
+            geo = both(
+                lambda p: geometry_pow(
+                    v[sub].double().cpu().numpy(), p, a[sub].double().cpu().numpy(),
+                    sign_np[sub], tol=geo_tol,
+                ),
+                out_k, out_p, sub,
+            )
+            n_steps = int(iters.sum())
+            finish(
+                "proj_pow", f"(k={k}, 3)", dtype, v, out_k, out_p, geo,
+                _time_ms(lambda: pr._proj_pow_batch(v, a, sign)), _time_ms(plain, plain_reps),
+                _bound_ms(k * 8 * item, n_steps * POW_OPS_PER_NEWTON, dtype,
+                          hbm_bytes_per_s, peak_flops),
+                f"{n_steps} Newton steps in all, at most {int(iters.max())} a row",
+                k == report_at["proj_pow"] and dtype == torch.float32,
+            )
+        # box cone: one problem, and a batch under shared and per-row bounds
+        for B, nb, per_row in box_cases:
+            v_np, bl_np, bu_np = box_case(B, nb, seed=B + per_row, per_row=per_row)
+            v = torch.as_tensor(v_np, dtype=dtype, device=dev)
+            bl = torch.as_tensor(bl_np, dtype=dtype, device=dev)
+            bu = torch.as_tensor(bu_np, dtype=dtype, device=dev)
+            iters = torch.zeros(B, dtype=torch.int32, device=dev)
+            out_k = pr._proj_box(v, bl, bu, iters_out=iters)
+            if not torch.equal(out_k, pr._proj_box(v, bl, bu)):
+                raise AssertionError(f"proj_box B={B} {dtype}: a repeated launch differs")
+            if not per_row:
+                # the same bounds given row by row must give the same bits
+                rows = pr._proj_box(v, bl.expand(B, nb).contiguous(), bu.expand(B, nb).contiguous())
+                if not torch.equal(out_k, rows):
+                    raise AssertionError(f"proj_box B={B} {dtype}: shared and per-row bounds differ")
+            out_p = pr._proj_box_ref(v, bl, bu)
+            torch.cuda.synchronize()
+            gsub = slice(0, min(B, 64))
+            geo = both(
+                lambda p: geometry_box(
+                    v_np[gsub], p, bl_np[gsub] if per_row else bl_np,
+                    bu_np[gsub] if per_row else bu_np, tol=geo_tol,
+                ),
+                out_k, out_p, gsub,
+            )
+            n_steps = int(iters.sum())
+            n_bytes = (2 * B * (nb + 1) + 2 * (B if per_row else 1) * nb) * item
+            finish(
+                "proj_box", f"({B}, {nb + 1}) {'per-row' if per_row else 'shared'} bounds", dtype,
+                v, out_k, out_p, geo,
+                _time_ms(lambda: pr._proj_box(v, bl, bu)),
+                _time_ms(lambda: pr._proj_box_ref(v, bl, bu), plain_reps),
+                _bound_ms(n_bytes, (n_steps + B) * nb * BOX_OPS_PER_ELEMENT, dtype,
+                          hbm_bytes_per_s, peak_flops),
+                f"{n_steps} Newton steps in all, at most {int(iters.max())} a problem",
+                (B, nb, per_row) == tuple(report_at["proj_box"]) and dtype == torch.float32,
+            )
+    return report
+
+
+def check_plain_on_card(log=print):
+    """Every projection left as plain tensor code, on the card against the
+    same function on the CPU, both in f64 (so that a difference is the
+    library's: eigh, svd, sort, and not rounding), at the shapes of the two
+    mixed-cone batches, with the wall time and the kernels of one call; and
+    the library's batched eigh timed per shape in f32. Returns {label: eigh
+    ms}."""
+    from ..ops import projections as pr  # noqa: PLC0415
+
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda")
+    sd = lambda n: n * (n + 1) // 2  # noqa: E731
+    cases = [
+        ("q (1280, 50)", pr._proj_soc_batch, (1280, 50)),
+        ("s n=3 (64, 6)", lambda z: pr._proj_psd_batch(z, 3), (64, sd(3))),
+        ("s n=10 (64, 55)", lambda z: pr._proj_psd_batch(z, 10), (64, sd(10))),
+        ("s n=32 (512, 528)", lambda z: pr._proj_psd_batch(z, 32), (512, sd(32))),
+        ("cs n=6 (64, 36)", lambda z: pr._proj_csd_batch(z, 6), (64, 36)),
+        ("ell1 n=40 (64, 41)", pr._proj_ell1_batch, (64, 41)),
+        ("nuc 8x5 (64, 41)", lambda z: pr._proj_nuc_batch(z, (8, 5)), (64, 41)),
+        ("sl n=8 k=3 (16, 37)", lambda z: pr._proj_sl_batch(z, (8, 3)), (16, sd(8) + 1)),
+        ("d n=6 (16, 23)", lambda z: pr._proj_logdet_batch(z, 6), (16, sd(6) + 2)),
+    ]
+    for label, fn, shape in cases:
+        z = torch.as_tensor(rng.randn(*shape) * 2.0)
+        zc = z.to(dev)
+        on_card = fn(zc).cpu()  # also the warm-up: the library's handles and workspaces
+        on_cpu = fn(z)
+        err = float((on_card - on_cpu).abs().max())
+        if not err <= 1e-9 * (1 + float(z.abs().max())):
+            raise AssertionError(f"plain projection {label}: card and CPU differ by {err:.3e} in f64")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(zc)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[3] plain projection {label} f64: card against CPU max |diff| {err:.3e}; one call "
+            f"on the card {secs * 1e3:.2f} ms of wall time, {_count_kernels(lambda: fn(zc))} kernels")
+    eigh_ms = {}
+    for k, n in ((64, 3), (64, 4), (64, 10), (512, 32)):
+        a = torch.randn(k, n, n, device=dev)
+        a = a + a.mT
+        eigh_ms[f"({k}, {n}, {n})"] = _time_ms(lambda: torch.linalg.eigh(a))
+    log("[3] torch.linalg.eigh f32 on the card, ms per call by shape: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in eigh_ms.items()))
+    return eigh_ms
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    B = int(argv[0]) if argv else MIXED_B
+    if not torch.cuda.is_available():
+        sys.exit("mixed_cone: PyTorch sees no CUDA device; this runs only on the card")
+    from .. import BatchedSCS  # noqa: PLC0415
+    from ..ops import _kernels  # noqa: PLC0415
+    from ..ops import projections as pr  # noqa: PLC0415
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip())
+    _kernels.build_all()
+    print(_kernels.build_log.get("cone_proj", ""))
+    check_cone_kernels(3.35e12, {torch.float32: 67e12, torch.float64: 34e12})
+    check_plain_on_card()
+    data, p_star = gen_mixed_batch(MIXED_K, B, MIXED_SEED)
+    t0 = time.perf_counter()
+    solver = BatchedSCS(
+        data, MIXED_K, dtype="float32", eps_abs=MIXED_EPS, eps_rel=MIXED_EPS,
+        max_iters=20000, scale=1.0, device="cuda",
+    )
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    for f in (pr._proj_exp_batch, pr._proj_pow_batch, pr._proj_box):
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = solver.solve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    iters = np.array([r["info"]["iter"] for r in res])
+    solved = sum(r["info"]["status"] == "solved" for r in res)
+    err = np.abs(np.array([r["info"]["pobj"] for r in res]) - p_star)
+    print(
+        f"mixed_cone B = {B}: {solved}/{B} solved; setup {setup:.3f} s, solve {secs:.3f} s; "
+        f"iterations mean {iters.mean():.1f}, max {iters.max()}; max |pobj - p*| {err.max():.3e}; "
+        f"launches proj_exp {pr._proj_exp_batch.launches}, proj_pow {pr._proj_pow_batch.launches}"
+    )
+    print("worst (pri, dual, gap, dist s, dist y):", check_solutions(MIXED_K, data, res, MIXED_EPS))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """Cone projections: scs_tpu_torch against scs_tpu, zero and nonneg cones.
 
 The port's projector and its Moreau dual must equal scs_tpu's exactly on
-the same numpy-seeded inputs; cone kinds not ported yet must raise
-NotImplementedError naming their ROADMAP.md item."""
+the same numpy-seeded inputs. Every cone kind has a projection now (the
+curved cones' parity is tests/test_torch_cones.py); the cones that used to
+raise NotImplementedError must build and match scs_tpu."""
 
 import numpy as np
 import pytest
@@ -62,8 +63,16 @@ def test_get_projector_cached_and_signature(cone):
     ({"p": [0.5]}, "item 12"),
 ])
 def test_unported_cones_raise(cone, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        tpr.make_cone_projector(ConeSpec.from_dict(cone))
+    """These cones raised NotImplementedError naming ROADMAP.md Queue 1
+    `item` until their projections were ported: now nothing raises, and the
+    projector equals scs_tpu's (f64, 1e-9 of 1 + |reference|)."""
+    assert not hasattr(tpr, "_NOT_PORTED")
+    tspec = ConeSpec.from_dict(cone)
+    z = _input(tspec.dim, 11) * 2
+    out_t = tpr.make_cone_projector(tspec)(torch.as_tensor(z)).numpy()
+    out_j = np.asarray(jpr.make_cone_projector(JConeSpec.from_dict(cone))(jnp.asarray(z)))
+    assert np.isfinite(out_t).all()
+    np.testing.assert_array_less(np.abs(out_t - out_j), 1e-9 * (1 + np.abs(out_j)))
 
 
 @pytest.mark.parametrize("dual", [False, True])
