@@ -16,8 +16,12 @@ Phases, one line each; any failure raises and exits nonzero:
      beside the bound: the block-ELL SpMV (single and batched; x at its true
      length, unpadded, as the solvers pass it; a repeated launch and a
      launch on the padded x must be bit-equal) and the batched dense GEMVs
-     gemv_rows / gemv_cols (flagship shapes, B = 1, ragged; also timed
-     against torch.bmm with TF32 off; a repeated launch must be bit-equal);
+     gemv_rows / gemv_cols at every shape the main paths launch them (the
+     flagship's, the mixed-cone batches', the single dense QP's; M also one
+     element into its buffer, which must give the aligned copy's bits) and
+     ragged shapes, one launch per call, a bit-equal repeat, the load width
+     and row shifts per shape; device times from CUDA-graph replays beside
+     the bound and torch.bmm's (TF32 off), host time per call of each;
      the three cone-projection kernels proj_exp / proj_pow / proj_box
      (rows drawn to hit every regime, at the mixed-cone batches' shapes and
      at 10^6 cones; the box at (1, 1001) and (512, 1001) under shared and
@@ -46,8 +50,10 @@ Phases, one line each; any failure raises and exits nonzero:
      512/512 must solve with the objective within 1e-3 of the planted one
      (relative to the objective's largest term) and f64 KKT residuals within 5x the solver's criterion, every dense
      matvec must go through gemv_rows / gemv_cols and none through the SpMV
-     kernels (launch counts zeroed just before, read just after); then one
-     full-batch iteration is timed under each direct_solver mode;
+     kernels (launch counts zeroed just before, read just after; the GEMV
+     launches also by shape); a torch.profiler window over two chunks (the
+     GEMVs' share of busy time); then one full-batch iteration is timed
+     under each direct_solver mode;
   9. the scs_tpu bench's `mixed_cone` cell at its full size: 64 problems
      over z + l + SOC + PSD + exp + dual exp + power cones from the numpy
      oracle's planted-optimum generator (tests/oracle.py), f32, eps 1e-4;
@@ -88,12 +94,7 @@ from scipy import sparse
 
 import scs_tpu_torch
 from scs_tpu_torch.ops import _kernels
-from scs_tpu_torch.ops.dense import (
-    gemv_cols,
-    gemv_cols_ref,
-    gemv_rows,
-    gemv_rows_ref,
-)
+from scs_tpu_torch.ops.dense import gemv_cols, gemv_rows
 from scs_tpu_torch.ops.sparse import (
     bell_spmv,
     bell_spmv_batched,
@@ -104,7 +105,7 @@ from scs_tpu_torch.ops.sparse import (
     stack_bell_host,
 )
 from scs_tpu_torch.ops import projections as cone_ops
-from scs_tpu_torch.tools import mixed_cone
+from scs_tpu_torch.tools import gemv_proto, mixed_cone
 from scs_tpu_torch.tools.flagship import (
     FLAGSHIP,
     gen_qp_batch,
@@ -268,7 +269,7 @@ def phase_device():
         f"{torch.backends.cudnn.allow_tf32}, float32 matmul precision "
         f"{torch.get_float32_matmul_precision()!r}"
     )
-    return name
+    return name, smi
 
 
 def bound_ms(n_bytes, n_flops, dtype):
@@ -490,85 +491,62 @@ def _gemv_bound(shape, out_len, dtype):
     return bound_ms(n_bytes, 2 * B * r * c, dtype)
 
 
-def _check_gemv_case(shape, dtype, gen, timed=False):
-    """gemv_rows and gemv_cols vs their plain versions on the card for one
-    (B, r, c) shape: the elementwise limit, a bit-equal repeat, and (timed)
-    CUDA-event medians of kernel, plain version and torch.bmm. Returns
-    {"rows": (err, k_ms, p_ms, lib_ms), "cols": ...}."""
-    dev = torch.device("cuda")
-    B, r, c = shape
-    M = torch.randn(shape, generator=gen, device=dev, dtype=dtype) / c**0.5
-    v = torch.randn((B, c), generator=gen, device=dev, dtype=dtype)
-    u = torch.randn((B, r), generator=gen, device=dev, dtype=dtype)
-    Mabs = M.abs()
-    out = {}
-    for which, kern, plain, vec, lib in (
-        ("rows", gemv_rows, gemv_rows_ref, v, lambda: torch.bmm(M, v[:, :, None])),
-        ("cols", gemv_cols, gemv_cols_ref, u, lambda: torch.bmm(u[:, None, :], M)),
-    ):
-        y_k = kern(M, vec)
-        y_again = kern(M, vec)
-        y_p = plain(M, vec)
-        bound = TOL[dtype] * plain(Mabs, vec.abs())
-        torch.cuda.synchronize()
-        err = (y_k - y_p).abs()
-        if not bool(torch.all(err <= bound)):
-            raise AssertionError(
-                f"gemv_{which} {shape} {dtype}: kernel disagrees with plain "
-                f"version (excess {float((err - bound).max()):.3e})"
-            )
-        if not torch.equal(y_k, y_again):
-            raise AssertionError(f"gemv_{which} {shape} {dtype}: a repeated launch differs")
-        if B == 1 and not torch.equal(kern(M[0], vec[0]), y_k[0]):
-            raise AssertionError(f"gemv_{which} {shape} {dtype}: 2-D call differs from B = 1")
-        k_ms = p_ms = l_ms = None
-        if timed:
-            k_ms = time_ms(lambda: kern(M, vec))
-            p_ms = time_ms(lambda: plain(M, vec))
-            l_ms = time_ms(lib)
-        out[which] = (float(err.max()), k_ms, p_ms, l_ms)
-    gb = M.numel() * M.element_size() / 1e9
-
-    def t(which):
-        _, k, p, l_ = out[which]
-        return f"{k:.4f} / {p:.4f} / {l_:.4f} ms ({gb / k * 1e3:.0f} GB/s)" if timed else "-"
-
-    print(
-        f"[3] gemv {shape} {str(dtype)[6:]}: max |err| rows {out['rows'][0]:.3e}, cols "
-        f"{out['cols'][0]:.3e} within {TOL[dtype]:g}*|M||v|, repeat bit-equal"
-        + (f"; kernel / plain / torch.bmm: rows {t('rows')}, cols {t('cols')}; bound "
-           f"{_gemv_bound(shape, r, dtype)[0]:.4f} ms" if timed else "")
-    )
-    return out
+# ragged shapes, checked but not timed: no multiple of 32 or of the vector
+# width, rows of <= 8 and <= 16 groups, a tiny matrix, rows too long to
+# stage x for
+GEMV_RAGGED = [(1, 1501, 999), (3, 77, 53), (5, 33, 1027), (7, 130, 66), (2, 4, 8), (4, 9, 29),
+               (3, 20, 4099)]
 
 
-def phase_kernels_dense():
-    """G1 (gemv_rows) and G2 (gemv_cols) against their plain versions: the
-    flagship's A and L/P shapes (timed, also against torch.bmm with TF32
-    off), B = 1, and ragged shapes whose sizes are no multiples of 32 or of
-    the vector width."""
+def phase_kernels_dense(tag):
+    """G1 (gemv_rows) and G2 (gemv_cols) against their plain versions at
+    every shape a main path launches them (gemv_proto.MAIN_SHAPES: the
+    flagship's A and P/S^-1, the wide batch's A and S^-1, mixed_cone's A
+    and S^-1, the single dense QP's A in f64 and at the flagship's width)
+    and with M one element into its buffer, f32 and f64: within TOL, one
+    launch per call, a bit-equal repeat, the 2-D call equal to B = 1, the
+    misaligned M equal to its aligned copy; in the shape's own dtype the
+    device time from CUDA-graph replays beside the bound, torch.bmm's (TF32
+    off), and the host time per call of each; then ragged shapes, checked
+    only. Returns (max |err| per kernel, the flagship A f32 records, every
+    record)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    flag_A = (FLAG_B, FLAG_M, FLAG_N)
-    flag_L = (FLAG_B, FLAG_N, FLAG_N)
-    cases = [
-        (flag_A, True), (flag_L, True), ((1, FLAG_M, FLAG_N), True),
-        ((1, 1501, 999), False), ((3, 77, 53), False), ((5, 33, 1027), False),
-        ((7, 130, 66), False),
-    ]
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    res = {}
-    try:
-        for dtype in (torch.float32, torch.float64):
-            for shape, timed in cases:
-                res[(shape, dtype)] = _check_gemv_case(shape, dtype, gen, timed)
-                torch.cuda.empty_cache()
-    finally:
-        torch.set_float32_matmul_precision(prev)
+    records = {}
+    for label, shape, dtype, kernels in [*gemv_proto.MAIN_SHAPES, gemv_proto.MISALIGNED]:
+        offset = 1 if label == gemv_proto.MISALIGNED[0] else 0
+        for dt in (torch.float32, torch.float64):
+            timed = dt == dtype
+            rec = gemv_proto.check_shape(shape, dt, kernels, gen, timed=timed, offset=offset,
+                                         plain=timed and label == "flagship A")
+            for which, r in rec.items():
+                if offset and not r["equals_aligned_copy"]:
+                    raise AssertionError(f"gemv_{which} {shape} {dt}: misaligned M differs from its aligned copy")
+                print("[3] " + gemv_proto.fmt(label, shape, dt, which, r, tag))
+            records[(label, dt)] = rec
+            torch.cuda.empty_cache()
+    for shape in GEMV_RAGGED:
+        for dt in (torch.float32, torch.float64):
+            rec = gemv_proto.check_shape(shape, dt, ("rows", "cols"), gen, timed=False)
+            records[("ragged", shape, dt)] = rec
+        print(f"[3] gemv ragged {shape} f32 and f64: within TOL, one launch per call, repeat "
+              f"bit-equal, 2-D call equal to B = 1 where B = 1")
     max_err = {
-        w: max(r[w][0] for r in res.values()) for w in ("rows", "cols")
+        w: max(r[w]["max_abs_err"] for r in records.values() if w in r) for w in ("rows", "cols")
     }
-    return max_err, res[(flag_A, torch.float32)]
+    return max_err, records[("flagship A", torch.float32)], records
+
+
+def _gemv_counts():
+    """The GEMV launches since the last reset, by (B, r, c)."""
+    return (f"gemv_rows by shape {dict(sorted(gemv_rows.shapes.items(), key=lambda kv: -kv[1]))}, "
+            f"gemv_cols by shape {dict(sorted(gemv_cols.shapes.items(), key=lambda kv: -kv[1]))}")
+
+
+def _zero_counts(*kernels):
+    for f in kernels:
+        f.launches = 0
+        if hasattr(f, "shapes"):
+            f.shapes.clear()
 
 
 def kkt_check(data, sol, eps, margin=5.0):
@@ -826,7 +804,7 @@ def phase_dense_single():
     ):
         res = {}
         for dev in ("cuda", "cpu"):
-            gemv_rows.launches = gemv_cols.launches = 0
+            _zero_counts(gemv_rows, gemv_cols)
             t0 = time.perf_counter()
             res[dev] = scs_tpu_torch.solve(
                 data, {"l": DENSE_QP_M}, device=dev, dtype="float64",
@@ -834,6 +812,7 @@ def phase_dense_single():
             )
             res[dev]["secs"] = time.perf_counter() - t0
             res[dev]["launches"] = (gemv_rows.launches, gemv_cols.launches)
+            res[dev]["by_shape"] = _gemv_counts()
         g, c = res["cuda"]["info"], res["cpu"]["info"]
         if g["status"] != c["status"] or g["status"] != "solved":
             raise AssertionError(f"dense QP {kw}: cuda {g['status']!r} vs cpu {c['status']!r}")
@@ -850,7 +829,7 @@ def phase_dense_single():
         print(
             f"[7] dense QP {DENSE_QP_M}x{DENSE_QP_N} f64 eps {eps:g} {kw}: cuda {g['status']} in "
             f"{g['iter']} it ({res['cuda']['secs']:.2f} s; gemv_rows/gemv_cols launches "
-            f"{res['cuda']['launches']}), cpu {c['status']} in {c['iter']} it "
+            f"{res['cuda']['launches']}: {res['cuda']['by_shape']}), cpu {c['status']} in {c['iter']} it "
             f"({res['cpu']['secs']:.2f} s); pobj {g['pobj']:.10e} vs {c['pobj']:.10e} "
             f"(rel {rel:.2e}; vs planted {rel_star:.2e})"
         )
@@ -882,16 +861,18 @@ def phase_flagship():
         device="cuda",
     )
     torch.cuda.reset_peak_memory_stats()
-    for f in (gemv_rows, gemv_cols, bell_spmv, bell_spmv_batched):
-        f.launches = 0
+    _zero_counts(gemv_rows, gemv_cols, bell_spmv, bell_spmv_batched)
     solver = scs_tpu_torch.BatchedSCS(data, {"l": FLAG_M}, **kw)
     torch.cuda.synchronize()
     setup_launches = (gemv_rows.launches, gemv_cols.launches)
+    gemv_rows.shapes.clear()
+    gemv_cols.shapes.clear()
     t0 = time.perf_counter()
     res = solver.solve()
     torch.cuda.synchronize()
     solve = time.perf_counter() - t0
     g1, g2 = gemv_rows.launches, gemv_cols.launches
+    by_shape = _gemv_counts()
     spmv = bell_spmv.launches + bell_spmv_batched.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if g1 <= setup_launches[0] or g2 <= setup_launches[1]:
@@ -929,11 +910,12 @@ def phase_flagship():
         f"{FLAG_TPU_ITERS[0]}, max {FLAG_TPU_ITERS[1]}); device_prob_iters "
         f"{solver.device_prob_iters} (sum of iterations {iters.sum()}); bucket ladder "
         f"{solver.bucket_ladder}; launches gemv_rows {g1}, gemv_cols {g2} (of them "
-        f"{setup_launches[0]} and {setup_launches[1]} in setup), SpMV {spmv}; max "
+        f"{setup_launches[0]} and {setup_launches[1]} in setup; the solve's {by_shape}), SpMV {spmv}; max "
         f"|pobj - p*| {float(err.max()):.2e}, over the objective's largest term "
         f"{float(rel):.2e}, over 1 + |p*| {float(rel_bench):.2e}; worst f64 KKT / limit: pri {worst[0]:.3f}, "
         f"dual {worst[1]:.3f}, gap {worst[2]:.3f}; peak device memory {peak_gb:.1f} GB"
     )
+    _profile_report(8, solver)
     # one full-batch iteration under each direct_solver mode
     solver.reset()
     t_inv = _time_iteration(solver)
@@ -1028,8 +1010,7 @@ def _solve_mixed(label, K, data):
     setup = time.perf_counter() - t0
     phases = _time_phases(solver)
     solver.reset()
-    for f in (*CONE_KERNELS, gemv_rows, gemv_cols, bell_spmv, bell_spmv_batched):
-        f.launches = 0
+    _zero_counts(*CONE_KERNELS, gemv_rows, gemv_cols, bell_spmv, bell_spmv_batched)
     t0 = time.perf_counter()
     res = solver.solve()
     torch.cuda.synchronize()
@@ -1045,7 +1026,8 @@ def _mixed_report(tag, label, solver, res, p_star, setup, solve, phases, worst, 
         f"{solve:.3f} s; iterations mean {iters.mean():.1f}, max {iters.max()}{extra}; "
         f"device_prob_iters {solver.device_prob_iters} (sum of iterations {iters.sum()}); bucket "
         f"ladder {solver.bucket_ladder}; launches proj_exp {exp_l}, proj_pow {pow_l}, proj_box "
-        f"{box_l}, gemv_rows {gemv_rows.launches}, gemv_cols {gemv_cols.launches}, SpMV 0; max "
+        f"{box_l}, gemv_rows {gemv_rows.launches}, gemv_cols {gemv_cols.launches} ({_gemv_counts()}), "
+        f"SpMV 0; max "
         f"|pobj - p*| {err.max():.2e} (limit {MIXED_OBJ_TOL:g}); worst host f64 residual / limit: pri "
         f"{worst[0]:.3f}, dual {worst[1]:.3f}, gap {worst[2]:.3f}; distance of s from K "
         f"{worst[3]:.2e}, of y from K* {worst[4]:.2e} (relative; the oracle's projections); one "
@@ -1139,7 +1121,7 @@ def _mixed_wide(K, pool):
 
 
 def main():
-    name = phase_device()
+    name, name_and_limit = phase_device()
     if sys.argv[1:] == ["--bell-profile"]:
         phase_build()
         bell_profile(gen_bell_lp(BELL_M, BELL_N, BELL_DENSITY))
@@ -1150,7 +1132,7 @@ def main():
     batch = gen_bell_batch(BATCH_B, BATCH_M, BATCH_N, BATCH_DENSITY, BATCH_WIDTH, BATCH_SEED)
     max_err, times, single_pack, shapes = phase_kernels(bench, qp)
     max_err_b, times_b, batch_shape = phase_kernels_batched(batch, single_pack)
-    max_err_g, gemv_flag = phase_kernels_dense()
+    max_err_g, gemv_flag, _ = phase_kernels_dense(name_and_limit)
     cone_report, eigh_ms = phase_kernels_cones()
     launches = phase_main(bench)
     phase_qp(qp)
@@ -1190,12 +1172,18 @@ def main():
               "scs_tpu/ops/sparse.py:79 under jax.vmap (scs_tpu/batch.py:190)",
               launches_b, max_err_b, k3[0], k3[1], _spmv_bound(*batch_shape, f32), k3[1],
               shape="bell_batch A packs"),
-        entry("gemv_rows", gemv_src, "tools/gemv_proto.py:13", launches_g1,
-              max_err_g["rows"], *gemv_flag["rows"][1:3], _gemv_bound(flag_A, FLAG_M, f32),
-              gemv_flag["rows"][3], shape=f"A {flag_A} f32"),
-        entry("gemv_cols", gemv_src, "tools/gemv_proto.py:100", launches_g2,
-              max_err_g["cols"], *gemv_flag["cols"][1:3], _gemv_bound(flag_A, FLAG_N, f32),
-              gemv_flag["cols"][3], shape=f"A {flag_A} f32"),
+        *(
+            entry(f"gemv_{w}", gemv_src, replaces, n, max_err_g[w], gemv_flag[w]["ms"],
+                  gemv_flag[w]["plain_ms"], _gemv_bound(flag_A, out_len, f32),
+                  gemv_flag[w]["bmm_ms"], shape=f"A {flag_A} f32",
+                  host_us=gemv_flag[w]["host_us"], library_host_us=gemv_flag[w]["bmm_host_us"],
+                  note="device ms from CUDA-graph replays; launches: the flagship's solve; "
+                       "library: torch.bmm, TF32 off")
+            for w, replaces, n, out_len in (
+                ("rows", "tools/gemv_proto.py:13", launches_g1, FLAG_M),
+                ("cols", "tools/gemv_proto.py:100", launches_g2, FLAG_N),
+            )
+        ),
         *(
             entry(kname, "scs_tpu_torch/ops/csrc/cone_proj.cu", replaces, n10,
                   cone_report[kname]["max_abs_err"], cone_report[kname]["ms"],

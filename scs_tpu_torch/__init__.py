@@ -8,14 +8,17 @@ Settings, the status constants, the info dict). The port runs in
 PyTorch; where scs_tpu ran a Pallas TPU kernel, it runs a CUDA kernel
 written by hand for Hopper (ops/csrc/), built with nvcc at first use.
 
-Ported so far, over zero and nonnegative cones, with or without P, single
-problems (SCS, solve) and batches (BatchedSCS, solve_batch): the dense
-strategies "direct" (Cholesky factor or precomputed inverse) and
-"indirect" (CG), whose matvecs run through the batched GEMV kernels
-(ops/dense.py), a batch being a dense (B, m, n) array; and the "bell"
-strategy (block-ELL matrix-free CG), a batch being a list of sparse
-matrices. The rest is queued in ROADMAP.md. The package never imports
-JAX; scs_tpu stays the reference it is tested against.
+Ported: every cone kind of scs_tpu (zero, nonnegative, box, second-order,
+PSD, complex PSD, exponential and power with their duals, ell1, nuclear,
+sum-of-largest, logdet), with or without P, single problems (SCS, solve)
+and batches (BatchedSCS, solve_batch), under the dense strategies
+"direct" (Cholesky factor or precomputed inverse) and "indirect" (CG),
+whose matvecs run through the batched GEMV kernels (ops/dense.py), a batch
+being a dense (B, m, n) array, and the "bell" strategy (block-ELL
+matrix-free CG), a batch being a list of sparse matrices. Not yet ported
+(ROADMAP.md): high accuracy (hi_acc, polish), the instrumented loop
+(phase_timing="always"), ShardedSCS and the bench CLI. The package never
+imports JAX; scs_tpu stays the reference it is tested against.
 """
 
 __version__ = "1.0.0"  # tracks scs_tpu.__version__

@@ -48,9 +48,9 @@ _SYMBOLS = {
         # (M, x, y, batch, rows, cols, stream)
         "gemv_rows_f32": [_VP, _VP, _VP, _I, _I, _I, _VP],
         "gemv_rows_f64": [_VP, _VP, _VP, _I, _I, _I, _VP],
-        # (M, u, y, scratch, batch, rows, cols, splits, stream)
-        "gemv_cols_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-        "gemv_cols_f64": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        # (M, u, y, batch, rows, cols, cluster, stream)
+        "gemv_cols_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        "gemv_cols_f64": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     },
     "cone_proj": {
         # (v, sign or null, out, evals or null, k, explim, stream)

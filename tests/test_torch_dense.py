@@ -40,7 +40,10 @@ from scs_tpu_torch.tools.flagship import gen_qp_batch, kkt_check_batch
 torch.set_num_threads(1)
 
 EPS = {np.float32: 1.2e-7, np.float64: 2.3e-16}
-SHAPES = [(1, 7, 5), (3, 33, 65), (4, 130, 77), (2, 64, 128)]
+# widths of every residue mod 4 (the f32 vector width) and odd f64 widths:
+# 61, 177 and 1771 are the mixed-cone batches' n, 30 is = 2 (mod 4)
+SHAPES = [(1, 7, 5), (3, 33, 65), (4, 130, 77), (2, 64, 128), (2, 37, 61), (1, 9, 1771),
+          (3, 50, 177), (2, 20, 30)]
 
 
 def _mats(shape, np_dtype, seed=0):
@@ -140,12 +143,13 @@ def _pallas_vpu_gemv(At, x, bm):
     return y.reshape(B, m)
 
 
-def test_plain_versions_match_the_pallas_kernel_bodies():
+@pytest.mark.parametrize("n", [128, 61, 177, 30])
+def test_plain_versions_match_the_pallas_kernel_bodies(n):
     """G1 reads A (B, m, n) and reduces rows: gemv_rows. G2 reads the
     transposed layout At (B, n, m) and reduces over its leading axis:
-    gemv_cols with M := At. f32, a small padded shape (m, n multiples of
-    the block)."""
-    B, m, n, bm = 2, 32, 128, 16
+    gemv_cols with M := At. f32; m a multiple of the block, n any width
+    (the blocks take whole rows of A and whole columns of At)."""
+    B, m, bm = 2, 32, 16
     A, x, _ = _mats((B, m, n), np.float32, seed=4)
     absprod = np.einsum("bmn,bn->bm", np.abs(A).astype(np.float64), np.abs(x).astype(np.float64))
     g1 = np.asarray(_pallas_gemv(jnp.asarray(A), jnp.asarray(x), bm), np.float64)
@@ -177,12 +181,23 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     assert dense._prepare("gemv_rows", M, w[:, 2:5], 2)[1].is_contiguous()
 
 
-def test_cols_splits_depends_on_the_shape_only():
-    assert dense.cols_splits(512, 1500, 1000, 4) == 1  # the batch fills the card
-    s = dense.cols_splits(1, 1500, 1000, 4)
-    assert 1 < s <= 1500 // dense._MIN_SPLIT_ROWS
-    assert dense.cols_splits(1, 40, 30, 8) == 1  # too few rows to cut
-    assert dense.cols_splits(1, 10**6, 8, 4) == dense._MAX_SPLITS
+def test_cols_cluster_depends_on_the_shape_only():
+    """gemv_cols plans one launch whose rows are split over a cluster of
+    1-8 blocks, from the shape and element size alone: 1 where the batch
+    fills the card, more for one tall matrix, never more blocks than rows
+    allow."""
+    shapes = [(512, 1500, 1000), (1, 1500, 1000), (128, 5313, 1771), (64, 185, 61),
+              (64, 61, 61), (1, 300, 200), (1, 40, 30), (1, 10**6, 8), (0, 5, 5), (3, 0, 7)]
+    for B, r, c in shapes:
+        for item in (4, 8):
+            k = dense.cols_cluster(B, r, c, item)
+            assert isinstance(k, int) and 1 <= k <= 8
+            assert k == dense.cols_cluster(B, r, c, item)
+            assert k == 1 or r // k >= dense._MIN_CLUSTER_ROWS
+    assert dense.cols_cluster(512, 1500, 1000, 4) == 1  # the batch fills the card
+    assert dense.cols_cluster(1, 1500, 1000, 4) > 1
+    assert dense.cols_cluster(1, 40, 30, 8) == 1  # too few rows to split
+    assert dense.cols_cluster(1, 10**6, 8, 4) == 8
 
 
 # -- the on-device batched Ruiz equilibration ----------------------------------
@@ -289,7 +304,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-CARD_SHAPES = [(512, 150, 100), (1, 1500, 1000), (3, 77, 53), (5, 33, 1027), (2, 4, 8), (1, 1501, 999)]
+# the main paths' shapes that fit a test (mixed_cone's A and S^-1, a cut of
+# the wide batch's A, the single dense QP) and ragged ones: every row
+# shift, rows of <= 8, <= 16 and more 16-byte groups, rows too long to stage
+# x for (4099 columns), split and unsplit G2
+CARD_SHAPES = [(512, 150, 100), (1, 1500, 1000), (3, 77, 53), (5, 33, 1027), (2, 4, 8),
+               (1, 1501, 999), (64, 185, 61), (64, 61, 61), (2, 53, 1771), (1, 300, 200),
+               (2, 5, 4099)]
 
 
 @pytest.mark.cuda
@@ -312,6 +333,33 @@ def test_gemv_kernels_match_plain_on_card(cuda_device, shape, dtype, tol):
         assert torch.equal(kern(M, vec), y)  # a fixed summation order
         if B == 1:
             assert torch.equal(kern(M[0], vec[0]), y[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("shape", [(3, 77, 53), (4, 130, 1771)])
+def test_gemv_kernels_take_a_misaligned_view_on_card(cuda_device, shape, dtype, tol):
+    """M a contiguous view one element into its buffer (no row on a 16-byte
+    boundary where the width is a multiple of 4): one launch per call,
+    within the tolerance, a bit-equal repeat, and the very bits of an
+    aligned copy (the summation order depends on the shape alone)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    B, r, c = shape
+    buf = torch.randn(1 + B * r * c, generator=gen, device=cuda_device, dtype=dtype)
+    M = buf[1 : 1 + B * r * c].view(B, r, c)
+    assert M.is_contiguous() and M.data_ptr() % 16 != 0
+    for kern, plain, vec in (
+        (dense.gemv_rows, dense.gemv_rows_ref, torch.randn((B, c), generator=gen, device=cuda_device, dtype=dtype)),
+        (dense.gemv_cols, dense.gemv_cols_ref, torch.randn((B, r), generator=gen, device=cuda_device, dtype=dtype)),
+    ):
+        before = kern.launches
+        y = kern(M, vec)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        bound = tol * plain(M.abs(), vec.abs())
+        assert bool(torch.all((y - plain(M, vec)).abs() <= bound))
+        assert torch.equal(kern(M, vec), y)
+        assert torch.equal(kern(M.clone(), vec), y)
 
 
 @pytest.mark.cuda
