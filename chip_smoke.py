@@ -22,6 +22,12 @@ Phases, one line each; any failure raises and exits nonzero:
      ragged shapes, one launch per call, a bit-equal repeat, the load width
      and row shifts per shape; device times from CUDA-graph replays beside
      the bound and torch.bmm's (TF32 off), host time per call of each;
+     D1, the compensated products of ops/df32.py (gemv_rows_comp /
+     gemv_cols_comp), at the shapes the high-accuracy paths launch it, on
+     ragged widths, on M one element into its buffer and on rows whose
+     products cancel: within 5e-7 of the float64 product per problem, a
+     bit-equal repeat, the aligned copy's bits, device ms from graph replays
+     beside the bound and beside G1/G2 at the same shape;
      the three cone-projection kernels proj_exp / proj_pow / proj_box
      (rows drawn to hit every regime, at the mixed-cone batches' shapes and
      at 10^6 cones; the box at (1, 1001) and (512, 1001) under shared and
@@ -43,7 +49,11 @@ Phases, one line each; any failure raises and exits nonzero:
      (launch counts zeroed just before, read just after), and problem 0
      solved alone through SCS must agree;
   7. a dense QP through SCS under "direct" and "indirect" in f64, on the
-     card and on the CPU: same status, pobj to 10 eps, host KKT;
+     card and on the CPU: same status, pobj to 10 eps, host KKT; then one
+     1500 x 1000 QP of the bench's generator in f32 at eps 1e-6 under
+     "direct", which is the high-accuracy mode (compensated residuals and
+     refinement through D1): solved, pobj within 1e-5 of the planted optimum
+     (relative to 1 + |p*|), f64 KKT within 2e-6 of the data's scale;
   8. the dense main path: BatchedSCS(...).solve() on the scs_tpu bench's
      flagship, 512 dense 1500 x 1000 QPs over the nonnegative cone, f32,
      eps 1e-4, generated on the card from a seed with a planted optimum;
@@ -68,7 +78,18 @@ Phases, one line each; any failure raises and exits nonzero:
      51,200 exp/power cones and 512 matrices per projection), generated in
      worker processes; the same gates; then a
      torch.profiler window over two chunks (kernels per iteration, busy and
-     idle share, the shares of eigh, of the cone kernels, of the GEMVs).
+     idle share, the shares of eigh, of the cone kernels, of the GEMVs);
+ 11. the scs_tpu bench's `hi_acc` cell at its full size: 32 dense QPs of
+     1500 x 1000 from its generator (scs_tpu/bench_cli.py:gen_batch, seed
+     4321, planted optima p*), A and P in f32: (a) BatchedSCS at eps 1e-4,
+     then polish: 32/32 certified, every polished point's f64 KKT on the raw
+     data within 1e-5 of its scale and |pobj - p*| <= 1e-5 (1 + |p*|); (b)
+     the bench's iterative path, f32 at eps 1e-6 (the high-accuracy mode, D1
+     on every iteration): no status worse than solved_inaccurate, every
+     solved problem within 1e-5 of p*; (c) the same batch in plain f64 at
+     eps 1e-6, which the card has and the TPU has not: all solved, f64 KKT.
+     D1's launches are zeroed just before each of (a) and (b) and read just
+     after.
 
 Then one JSON line describing the kernels, and last the contract line
 {"ok": true, "device": {...}}. With no CUDA device the script exits
@@ -84,6 +105,7 @@ prints no contract line.
 
 import json
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -93,7 +115,7 @@ import torch
 from scipy import sparse
 
 import scs_tpu_torch
-from scs_tpu_torch.ops import _kernels
+from scs_tpu_torch.ops import _kernels, df32
 from scs_tpu_torch.ops.dense import gemv_cols, gemv_rows
 from scs_tpu_torch.ops.sparse import (
     bell_spmv,
@@ -108,6 +130,7 @@ from scs_tpu_torch.ops import projections as cone_ops
 from scs_tpu_torch.tools import gemv_proto, mixed_cone
 from scs_tpu_torch.tools.flagship import (
     FLAGSHIP,
+    gen_batch,
     gen_qp_batch,
     kkt_check_batch,
     profile_window,
@@ -126,6 +149,10 @@ FLAG_B, FLAG_M, FLAG_N = FLAGSHIP
 FLAG_EPS, FLAG_SEED = 1e-4, 1234
 FLAG_TPU_ITERS = (204, 600)  # mean, max: BENCH_r05.json, TPU v5e — reference only
 DENSE_QP_M, DENSE_QP_N, DENSE_QP_EPS = 300, 200, 1e-6
+# The scs_tpu bench's `hi_acc` cell (scs_tpu/bench_cli.py:235-338); its A
+# width is also the single high-accuracy QP's of phase 7
+HI_B, HI_M, HI_N, HI_SEED = 32, 1500, 1000, 4321
+HI_TPU_MEAN_ITERS = 242.2  # BENCH_r05.json, TPU v5e, (a) — a count, not a target
 # The scs_tpu bench's `mixed_cone` cell (scs_tpu/bench_cli.py:412-509) and the
 # wide mixed-cone batch (scs_tpu_torch/tools/mixed_cone.py).
 MIXED_TPU_ITERS = (351.6, 1200)  # mean, max: BENCH_r05.json, TPU v5e — reference only
@@ -536,6 +563,24 @@ def phase_kernels_dense(tag):
     return max_err, records[("flagship A", torch.float32)], records
 
 
+def phase_kernels_comp(tag):
+    """D1 (df32.mv / df32.tv) on the card (gemv_proto.comp_shapes): every
+    shape the high-accuracy paths launch it at, ragged widths, M one element
+    into its buffer and rows whose products cancel, each against the float64
+    product; timed at the hi_acc cell's A and P and at the single QP's A.
+    Returns (max |kernel - plain| per kernel where both meet the bound, the
+    records)."""
+    recs = gemv_proto.comp_shapes(
+        tag, timed_labels={"hi_acc A", "hi_acc P", "single dense A"}, prefix="[3] "
+    )
+    max_err = {
+        w: max(r["max_abs_err"] for (label, k), r in recs.items()
+               if k == w and label not in ("hi_acc dots", gemv_proto.COMP_CANCEL[0]))
+        for w in ("rows", "cols")
+    }
+    return max_err, recs
+
+
 def _gemv_counts():
     """The GEMV launches since the last reset, by (B, r, c)."""
     return (f"gemv_rows by shape {dict(sorted(gemv_rows.shapes.items(), key=lambda kv: -kv[1]))}, "
@@ -835,6 +880,58 @@ def phase_dense_single():
         )
 
 
+def _d1_counts():
+    """D1's launches since the last reset, by (B, r, c)."""
+    return (f"df32.mv {df32.mv.launches} {dict(df32.mv.shapes)}, "
+            f"df32.tv {df32.tv.launches} {dict(df32.tv.shapes)}")
+
+
+def phase_hi_acc_single():
+    """One QP of the bench's generator (gen_batch(1, 1500, 1000)[0]) in f32 at
+    eps 1e-6 under "direct": the high-accuracy mode, held to the rules of
+    tests/test_hi_accuracy.py::test_qp_eps6_f32_matches_f64. Returns D1's
+    launches (mv, tv)."""
+    A, P, b, c, p_star = gen_batch(1, HI_M, HI_N, return_opt=True)
+    A, P, b, c, p_star = A[0], P[0], b[0], c[0], float(p_star[0])
+    data = {"A": sparse.csc_matrix(A), "P": sparse.csc_matrix(np.triu(P)), "b": b, "c": c}
+    _zero_counts(df32.mv, df32.tv, gemv_rows, gemv_cols)
+    t0 = time.perf_counter()
+    solver = scs_tpu_torch.SCS(
+        data, {"l": HI_M}, device="cuda", dtype="float32", solver_strategy="direct",
+        eps_abs=1e-6, eps_rel=1e-6, max_iters=50000, verbose=False,
+    )
+    sol = solver.solve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = (df32.mv.launches, df32.tv.launches)
+    counts = _d1_counts()
+    info = sol["info"]
+    if not (solver.core.hi_acc and solver.core.refine_steps == 2):
+        raise AssertionError("f32 at eps 1e-6 on cuda did not resolve to the high-accuracy mode")
+    if min(launches) <= 0:
+        raise AssertionError(f"the high-accuracy solve launched D1 {launches} times")
+    x, y, s = (np.asarray(sol[k], np.float64) for k in ("x", "y", "s"))
+    rp = np.linalg.norm(A @ x + s - b)
+    rd = np.linalg.norm(P @ x + A.T @ y + c)
+    scale_p = 1 + max(np.linalg.norm(A @ x), np.linalg.norm(b))
+    scale_d = 1 + max(np.linalg.norm(P @ x), np.linalg.norm(c))
+    obj = abs(info["pobj"] - p_star) / (1 + abs(p_star))
+    if info["status"] != "solved" or obj > 1e-5 or rp >= 2e-6 * scale_p or rd >= 2e-6 * scale_d:
+        raise AssertionError(
+            f"high-accuracy QP: {info['status']} in {info['iter']} it, pobj {info['pobj']!r} vs "
+            f"p* {p_star!r} ({obj:.2e}), pri {rp:.3e} (lim {2e-6 * scale_p:.3e}), dual {rd:.3e} "
+            f"(lim {2e-6 * scale_d:.3e})"
+        )
+    print(
+        f"[7] high-accuracy QP {HI_M}x{HI_N} (gen_batch(1, {HI_M}, {HI_N})[0]) f32 eps 1e-6 "
+        f"direct on cuda: {info['status']} in {info['iter']} iterations, {secs:.2f} s; "
+        f"|pobj - p*| / (1 + |p*|) {obj:.2e}; f64 KKT / (2e-6 x scale): pri "
+        f"{rp / (2e-6 * scale_p):.3f}, dual {rd / (2e-6 * scale_d):.3f}; D1 launches {counts}; "
+        f"G1/G2 launches {gemv_rows.launches}, {gemv_cols.launches}"
+    )
+    return launches
+
+
 def _time_iteration(solver, reps=5):
     """Seconds per full-batch lockstep iteration (no AA trial, no check) of
     a freshly set-up BatchedSCS, after one warm-up iteration."""
@@ -1120,6 +1217,131 @@ def _mixed_wide(K, pool):
     return launches
 
 
+def _hi_kkt(A, P, b, c, res, tol):
+    """Worst f64 KKT ratios (pri, dual) of a batch's points on the raw
+    data, each residual over tol x (1 + the largest norm of its terms)."""
+    worst = [0.0, 0.0]
+    for i, r in enumerate(res):
+        x, y, s = (np.asarray(r[k], np.float64) for k in ("x", "y", "s"))
+        Ax, Px, Aty = A[i] @ x, P[i] @ x, A[i].T @ y
+        pri = np.linalg.norm(Ax + s - b[i]) / (
+            tol * (1 + max(np.linalg.norm(Ax), np.linalg.norm(b[i]))))
+        dual = np.linalg.norm(Px + Aty + c[i]) / (
+            tol * (1 + max(np.linalg.norm(Px), np.linalg.norm(Aty), np.linalg.norm(c[i]))))
+        worst = [max(worst[0], pri), max(worst[1], dual)]
+    return worst
+
+
+def _hi_report(tag, res, p_star, secs):
+    """(statuses, mean iterations, objective errors over 1 + |p*|) and the
+    line's text."""
+    statuses = [r["info"]["status"] for r in res]
+    iters = np.array([r["info"]["iter"] for r in res])
+    objs = np.array([r["info"]["pobj"] for r in res])
+    rel = np.abs(objs - p_star) / (1 + np.abs(p_star))
+    text = (f"{tag}: statuses {dict(Counter(statuses))}, "
+            f"iterations mean {iters.mean():.1f} max {iters.max()}, solve {secs:.3f} s, "
+            f"max |pobj - p*| / (1 + |p*|) {rel.max():.3e}")
+    return statuses, rel, text
+
+
+def phase_hi_acc():
+    """The scs_tpu bench's hi_acc cell at its full size (see the module
+    docstring, phase 11). Returns D1's launches {kernel: (a), ...} and the
+    figures of the three parts."""
+    t0 = time.perf_counter()
+    A, P, b, c, p_star = gen_batch(HI_B, HI_M, HI_N, seed=HI_SEED, return_opt=True)
+    data32 = {"A": A.astype(np.float32), "P": P.astype(np.float32), "b": b, "c": c}
+    print(f"[11] hi_acc: {HI_B} QPs of {HI_M}x{HI_N} generated on the host in "
+          f"{time.perf_counter() - t0:.1f} s (seed {HI_SEED}); nothing cut")
+    cell = dict(device="cuda", verbose=False)
+    out = {}
+
+    # (a) eps 1e-4, then polish
+    _zero_counts(df32.mv, df32.tv, gemv_rows, gemv_cols)
+    t0 = time.perf_counter()
+    sp = scs_tpu_torch.BatchedSCS(
+        data32, {"l": HI_M}, dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iters=20000,
+        batch_compact_interval=8, **cell,
+    )
+    res = sp.solve()
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    iters = np.array([r["info"]["iter"] for r in res])
+    t0 = time.perf_counter()
+    res, pmask = sp.polish(res)
+    torch.cuda.synchronize()
+    t_polish = time.perf_counter() - t0
+    out["a"] = {"mv": df32.mv.launches, "tv": df32.tv.launches}
+    counts = _d1_counts()
+    setup = sum(sp.setup_breakdown.values())
+    del sp
+    pm = np.asarray(pmask)
+    objs = np.array([r["info"]["pobj"] for r in res])
+    rel = np.abs(objs - p_star) / (1 + np.abs(p_star))
+    worst = _hi_kkt(A, P, b, c, res, 1e-5)
+    rp_max = max(r["info"]["res_pri"] for r in res)
+    rd_max = max(r["info"]["res_dual"] for r in res)
+    print(
+        f"[11] (a) f32 eps 1e-4 + polish: {int(pm.sum())}/{HI_B} certified; iterations mean "
+        f"{iters.mean():.1f} max {iters.max()} (BENCH_r05 TPU v5e run, a count only: mean "
+        f"{HI_TPU_MEAN_ITERS}); solve {t_solve:.3f} s (setup {setup:.3f} s of it, as the "
+        f"bench counts), polish {t_polish:.3f} s (generation excluded); max |pobj - p*| / (1 + |p*|) {rel.max():.3e} "
+        f"({int(-np.log10(max(rel.max(), 1e-300)))} significant digits); max res_pri {rp_max:.3e}, "
+        f"res_dual {rd_max:.3e}; f64 KKT / (1e-5 x scale) worst pri {worst[0]:.3f}, dual "
+        f"{worst[1]:.3f}; D1 launches {counts}"
+    )
+    if pm.sum() != HI_B or max(worst) > 1.0 or rel.max() > 1e-5:
+        raise AssertionError(f"hi_acc (a): {int(pm.sum())}/{HI_B} certified, KKT {worst}, "
+                             f"objective {rel.max():.3e}")
+    if out["a"]["mv"] <= 0 or out["a"]["tv"] <= 0:
+        raise AssertionError(f"hi_acc (a): polish launched D1 {out['a']}")
+    out["a_secs"] = (t_solve, t_polish)
+
+    # (b) the bench's iterative path: f32 at eps 1e-6, D1 on every iteration
+    _zero_counts(df32.mv, df32.tv, gemv_rows, gemv_cols)
+    t0 = time.perf_counter()
+    sb = scs_tpu_torch.BatchedSCS(
+        data32, {"l": HI_M}, dtype="float32", eps_abs=1e-6, eps_rel=1e-6,
+        acceleration_lookback=5, max_iters=50000, **cell,
+    )
+    res_b = sb.solve()
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    out["b"] = {"mv": df32.mv.launches, "tv": df32.tv.launches}
+    statuses, rel_b, text = _hi_report("[11] (b) f32 eps 1e-6 iterative", res_b, p_star, t_b)
+    print(f"{text}; D1 launches {_d1_counts()}; G1/G2 launches {gemv_rows.launches}, "
+          f"{gemv_cols.launches}")
+    solved = np.array([st == "solved" for st in statuses])
+    if not set(statuses) <= {"solved", "solved_inaccurate"} or (rel_b[solved] > 1e-5).any():
+        raise AssertionError(f"hi_acc (b): statuses {statuses}, objective errors {rel_b}")
+    if out["b"]["mv"] <= 0 or out["b"]["tv"] <= 0:
+        raise AssertionError(f"hi_acc (b): the high-accuracy solve launched D1 {out['b']}")
+    _profile_report(11, sb)
+    del res_b, sb
+
+    # (c) the same batch in plain f64 at eps 1e-6
+    t0 = time.perf_counter()
+    res_c = scs_tpu_torch.solve_batch(
+        {"A": A, "P": P, "b": b, "c": c}, {"l": HI_M}, dtype="float64", eps_abs=1e-6,
+        eps_rel=1e-6, max_iters=50000, **cell,
+    )
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    statuses_c, _, text = _hi_report("[11] (c) f64 eps 1e-6", res_c, p_star, t_c)
+    data_c = {k: torch.as_tensor(v, device="cuda") for k, v in (("A", A), ("P", P), ("b", b), ("c", c))}
+    worst_c = kkt_check_batch(data_c, res_c, 1e-6)
+    print(f"{text}; worst f64 KKT / limit: pri {worst_c[0]:.3f}, dual {worst_c[1]:.3f}, gap "
+          f"{worst_c[2]:.3f}")
+    if any(st != "solved" for st in statuses_c):
+        raise AssertionError(f"hi_acc (c): statuses {statuses_c}")
+    print(f"[11] (c) beside (a): f64 at eps 1e-6 {t_c:.3f} s to {HI_B}/{HI_B} solved; f32 at eps "
+          f"1e-4 + polish {t_solve + t_polish:.3f} s to {int(pm.sum())}/{HI_B} certified")
+    del data_c, res_c
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     name, name_and_limit = phase_device()
     if sys.argv[1:] == ["--bell-profile"]:
@@ -1133,20 +1355,24 @@ def main():
     max_err, times, single_pack, shapes = phase_kernels(bench, qp)
     max_err_b, times_b, batch_shape = phase_kernels_batched(batch, single_pack)
     max_err_g, gemv_flag, _ = phase_kernels_dense(name_and_limit)
+    max_err_d1, d1_recs = phase_kernels_comp(name_and_limit)
     cone_report, eigh_ms = phase_kernels_cones()
     launches = phase_main(bench)
     phase_qp(qp)
     launches_b = phase_batch(batch)
     del bench, qp, batch
     phase_dense_single()
+    d1_single = phase_hi_acc_single()
     launches_g1, launches_g2 = phase_flagship()
     cone_launches_9 = phase_mixed_cone()
     cone_launches_10 = phase_mixed_wide()
+    d1_cell = phase_hi_acc()
 
     f32 = torch.float32
     spmv_src = "scs_tpu_torch/ops/csrc/bell_spmv.cu"
     gemv_src = "scs_tpu_torch/ops/csrc/gemv.cu"
     flag_A = (FLAG_B, FLAG_M, FLAG_N)
+    hi_A = (HI_B, HI_M, HI_N)
 
     def entry(name, source, replaces, n_launches, err, ms, plain, bound, library, **extra):
         return {
@@ -1200,6 +1426,25 @@ def main():
                  "scs_tpu/ops/projections.py:67"),
                 cone_launches_9, cone_launches_10,
             )
+        ),
+        *(
+            entry(f"df32.{fn} (D1 {w})", gemv_src, replaces,
+                  d1_cell["a"][fn] + d1_cell["b"][fn], max_err_d1[w], rec["ms"], rec["plain_ms"],
+                  (rec["bound_ms"], rec["bound_by"]), None, shape=f"hi_acc A {hi_A} f32",
+                  rel_err_vs_f64=rec["rel_err"], gemv_ms_same_shape=rec["gemv_ms"],
+                  launches_polish=d1_cell["a"][fn], launches_iterative=d1_cell["b"][fn],
+                  launches_single_qp=single,
+                  note="compensated f32 product (Dot2: p-stream by TwoSum, err = fma(a, b, -p)); "
+                       "no Pallas kernel existed: XLA computed it from materialized split "
+                       "temporaries. launches: phase 11 (a) polish + (b) iterative eps 1e-6; "
+                       "max_abs_err: against the plain version, both within 5e-7 of the f64 "
+                       "product per problem; no single PyTorch call computes a compensated "
+                       "product")
+            for fn, w, replaces, single in (
+                ("mv", "rows", "scs_tpu/ops/df32.py:45", d1_single[0]),
+                ("tv", "cols", "scs_tpu/ops/df32.py:51", d1_single[1]),
+            )
+            for rec in (d1_recs[("hi_acc A", w)],)
         ),
     ]}))
     print(json.dumps({"ok": True, "device": {

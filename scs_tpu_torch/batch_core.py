@@ -34,6 +34,7 @@ import torch
 
 from .cones import ConeSpec
 from .info import FAILED, UNFINISHED
+from .ops import df32
 from .ops.projections import get_projector
 from .ops.dense import gemv_cols, gemv_rows
 from .ops.sparse import bell_spmv_batched
@@ -125,6 +126,11 @@ class BatchedCore:
     _sync = Core._sync
     _init_strategy = Core._init_strategy
     _matvec_S = Core._matvec_S
+    # the high-accuracy hooks; they dispatch to this class's operators
+    _Ax_hi = Core._Ax_hi
+    _ATy_hi = Core._ATy_hi
+    _Px_hi = Core._Px_hi
+    _matvec_S_hi = Core._matvec_S_hi
     _build_S = Core._build_S
     _factorize = Core._factorize
     _apply_factor = Core._apply_factor
@@ -182,6 +188,13 @@ class BatchedCore:
             return gemv_rows(mats.P, x)
         pb = mats.pbell
         return bell_spmv_batched(pb.blocks, pb.cols, x)[:, : self.n]
+
+    def _dot_hi(self, a, b):
+        """Per-problem dot over the last axis, compensated in high-accuracy
+        mode (Core._dot_hi)."""
+        if not self.hi_acc:
+            return _dot(a, b)
+        return df32.dot(a, b)
 
     def _diagS(self, mats: Mats, dy, scale):
         """diag(S) per problem; the scale is (B,) (see Core._diagS)."""
@@ -247,13 +260,13 @@ class BatchedCore:
         """g = solve(S, c - A' D_y b) and its y image, per problem: by the
         given factor L (direct) or by CG (on `rows` only, where given)."""
         dy = 1.0 / self._ry(scale)
-        rhs = mats.cn - self._ATy(mats, dy * mats.bn)
+        rhs = mats.cn - self._ATy_hi(mats, dy * mats.bn)
         if self.indirect:
             tol = torch.clamp_min(self.eps_floor * _norm(rhs), self.stg.cg_tol_min * 10)
             gx, _ = self._cg(mats, dy, rhs, torch.zeros_like(rhs), tol, scale, rows)
         else:
             gx = self._direct_solve(mats, L, dy, rhs)
-        gy = dy * (mats.bn + self._Ax(mats, gx))
+        gy = dy * (mats.bn + self._Ax_hi(mats, gx))
         return gx, gy
 
     def initial_scale(self, B):
@@ -517,9 +530,9 @@ class BatchedCore:
         ry = self._ry(state.scale)
         st_hat = ry * v[:, n : n + m]
 
-        Axb = self._Ax(mats, xbar)
-        Aty = self._ATy(mats, ybar)
-        Pxb = self._Px(mats, xbar) if self.has_P else torch.zeros_like(xbar)
+        Axb = self._Ax_hi(mats, xbar)
+        Aty = self._ATy_hi(mats, ybar)
+        Pxb = self._Px_hi(mats, xbar)
 
         Dinv = 1.0 / mats.D
         Einv = 1.0 / mats.E
@@ -549,9 +562,9 @@ class BatchedCore:
         nPx = _norm(Einv * Pxb) / (sc_c * safe_tau)
         nAty = _norm(Einv * Aty) / (sc_c * safe_tau)
 
-        ctx = _dot(mats.cn, xbar) / (sc_c * sc_b * safe_tau)
-        bty = _dot(mats.bn, ybar) / (sc_b * sc_c * safe_tau)
-        xPx = _dot(xbar, Pxb) / (sc_b * sc_c * safe_tau**2)
+        ctx = self._dot_hi(mats.cn, xbar) / (sc_c * sc_b * safe_tau)
+        bty = self._dot_hi(mats.bn, ybar) / (sc_b * sc_c * safe_tau)
+        xPx = self._dot_hi(xbar, Pxb) / (sc_b * sc_c * safe_tau**2)
         gap = torch.abs(xPx + ctx + bty)
         pobj = 0.5 * xPx + ctx
         dobj = -0.5 * xPx - bty

@@ -51,6 +51,9 @@ _SYMBOLS = {
         # (M, u, y, batch, rows, cols, cluster, stream)
         "gemv_cols_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
         "gemv_cols_f64": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        # D1, the compensated products of ops/df32.py: the same arguments
+        "gemv_rows_comp_f32": [_VP, _VP, _VP, _I, _I, _I, _VP],
+        "gemv_cols_comp_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     },
     "cone_proj": {
         # (v, sign or null, out, evals or null, k, explim, stream)

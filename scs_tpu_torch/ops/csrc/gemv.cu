@@ -67,6 +67,26 @@
 // and a misaligned view of M and its aligned copy. Sums are plain FMAs in the
 // element type: no tensor cores, hence no TF32. Offsets are size_t (the f64
 // batch is 6.1 GB). PERF.md has the designs timed against this one.
+//
+// D1, the compensated products (gemv_rows_comp_f32, gemv_cols_comp_f32): the
+// same two kernels with COMP = true, float only. They replace no Pallas
+// kernel: scs_tpu computes them as XLA code (scs_tpu/ops/df32.py:45-60,
+// mv and tv; dot is mv on a (B, 1, k) view), where the plain PyTorch form
+// materializes the product, its error and four split temporaries the size
+// of M. Here M is read once, as by G1/G2, so the bound is the same bytes;
+// the extra operations (about ten per element) stay far below the card's
+// rate. Each accumulator s has a companion c: a product adds p = fl(a*b) to
+// s and its exact error fma(a, b, -p) (Dekker's err, without the split) to
+// c, and the addition s + p is itself made error-free (TwoSum), its error
+// also going to c; two partial sums meet by the same rule, and the result is
+// s + c. So the p-stream's own summation error is compensated as well
+// (Ogita-Rump-Oishi Dot2): the result is the product as if summed in twice
+// the working precision, whatever the length of a lane's sequential sum
+// (gemv_cols runs one down 1500 rows), where scs_tpu relies on XLA's tree
+// sums for it. Every step of the compensated path is an _rn intrinsic, which
+// nvcc never contracts: a contracted s + a*b would make p something other
+// than fl(a*b) and count the rounding twice. COMP = false compiles the plain
+// kernels as they were.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -175,6 +195,66 @@ __device__ __forceinline__ int valid_in(long long g, int cols) {
   return n < 0 ? 0 : (n > kV<T> ? kV<T> : static_cast<int>(n));
 }
 
+// ------------------------------------------------ compensated accumulation
+
+// s + p as t + e exactly (TwoSum): s := t, and the error e goes to c.
+__device__ __forceinline__ void two_sum_add(float& s, float& c, float p) {
+  const float t = __fadd_rn(s, p);
+  const float bp = __fsub_rn(t, s);
+  const float e = __fadd_rn(__fsub_rn(s, __fsub_rn(t, bp)), __fsub_rn(p, bp));
+  s = t;
+  c = __fadd_rn(c, e);
+}
+
+// (s, c) += a * b: the plain FMA, or under COMP p = fl(a*b) into s by TwoSum
+// and the product's exact error into c.
+template <bool COMP, typename T>
+__device__ __forceinline__ void mac(T& s, T& c, T a, T b) {
+  if constexpr (COMP) {
+    const float p = __fmul_rn(a, b);
+    c = __fadd_rn(c, __fmaf_rn(a, b, -p));
+    two_sum_add(s, c, p);
+  } else {
+    s += a * b;
+  }
+}
+
+// (s, c) += (s2, c2): one partial sum into another.
+template <bool COMP, typename T>
+__device__ __forceinline__ void merge(T& s, T& c, T s2, T c2) {
+  if constexpr (COMP) {
+    two_sum_add(s, c, s2);
+    c = __fadd_rn(c, c2);
+  } else {
+    s += s2;
+  }
+}
+
+// The value of an accumulator: s, or s + c.
+template <bool COMP, typename T>
+__device__ __forceinline__ T total(T s, T c) {
+  if constexpr (COMP) {
+    return __fadd_rn(s, c);
+  } else {
+    return s;
+  }
+}
+
+// The lanes' sums of a segment of W lanes into every lane (a xor tree).
+template <bool COMP, int W, typename T>
+__device__ __forceinline__ void reduce_lanes(T& s, T& c) {
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1) {
+    if constexpr (COMP) {
+      const T s2 = __shfl_xor_sync(kFull, s, off, W);
+      const T c2 = __shfl_xor_sync(kFull, c, off, W);
+      merge<COMP>(s, c, s2, c2);
+    } else {
+      s += __shfl_xor_sync(kFull, s, off, W);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- gemv_rows
 
 constexpr int kStageGroups = 1024;  // x staged in shared memory up to 16 KB a row
@@ -215,22 +295,32 @@ __device__ __forceinline__ Vec<T> group_c(const Vec<T> (&m)[4], const Vec<T>& ex
 // whole pass (no group of it reaches the row's end) or with the columns
 // past cols selected to zero (M holds the next row's values there; xs is
 // zero past cols and is not read past its groups).
-template <typename T, int P, int Q>
-__device__ __forceinline__ void fma_slot(T (&acc)[4], const Vec<T> (&m)[4], const Vec<T>& extra,
-                                         const Vec<T>* xs, long long g, long long groups,
-                                         int cols, bool whole, int lane) {
+template <typename T, int P, int Q, bool COMP>
+__device__ __forceinline__ void fma_slot(T (&acc)[4], T (&cmp)[4], const Vec<T> (&m)[4],
+                                         const Vec<T>& extra, const Vec<T>* xs, long long g,
+                                         long long groups, int cols, bool whole, int lane) {
   const Vec<T> gm = group_c<T, P, Q>(m, extra, lane);
   if (whole) {
     const Vec<T> xv = xs[g];
 #pragma unroll
-    for (int e = 0; e < kV<T>; ++e) acc[Q] += gm.v[e] * xv.v[e];
+    for (int e = 0; e < kV<T>; ++e) mac<COMP>(acc[Q], cmp[Q], gm.v[e], xv.v[e]);
   } else {
     Vec<T> xv = xs[g < groups ? g : 0];
     if (g >= groups) xv = zero_vec<T>();
     const int nv = valid_in<T>(g, cols);
 #pragma unroll
-    for (int e = 0; e < kV<T>; ++e) acc[Q] += (e < nv ? gm.v[e] : T(0)) * xv.v[e];
+    for (int e = 0; e < kV<T>; ++e) mac<COMP>(acc[Q], cmp[Q], e < nv ? gm.v[e] : T(0), xv.v[e]);
   }
+}
+
+// The four slots' sums as (a0 + a1) + (a2 + a3), into s and c.
+template <bool COMP, typename T>
+__device__ __forceinline__ void slots_sum(T (&acc)[4], T (&cmp)[4], T& s, T& c) {
+  merge<COMP>(acc[0], cmp[0], acc[1], cmp[1]);
+  merge<COMP>(acc[2], cmp[2], acc[3], cmp[3]);
+  merge<COMP>(acc[0], cmp[0], acc[2], cmp[2]);
+  s = acc[0];
+  c = cmp[0];
 }
 
 // One row of at most kStageGroups groups, P elements past a 16-byte
@@ -238,11 +328,12 @@ __device__ __forceinline__ void fma_slot(T (&acc)[4], const Vec<T> (&m)[4], cons
 // takes the groups g = l + 32 q + 128 t. The pass's four aligned vectors
 // (cur, the first pass preloaded by the caller) are summed while the next
 // pass's are in flight.
-template <typename T, int P>
-__device__ __forceinline__ T row_staged(const T* am, const Vec<T>* xs, Vec<T> (&cur)[4],
-                                        long long groups, int cols, int lane) {
+template <typename T, int P, bool COMP>
+__device__ __forceinline__ void row_staged(const T* am, const Vec<T>* xs, Vec<T> (&cur)[4],
+                                           long long groups, int cols, int lane, T& s, T& c) {
   constexpr int V = kV<T>;
   T acc[4] = {T(0), T(0), T(0), T(0)};
+  T cmp[4] = {T(0), T(0), T(0), T(0)};
   for (long long k0 = 0; k0 < groups; k0 += 128) {
     const long long k = k0 + lane;
     Vec<T> nxt[4];
@@ -253,23 +344,24 @@ __device__ __forceinline__ T row_staged(const T* am, const Vec<T>* xs, Vec<T> (&
     }
     const Vec<T> extra = load_if(P && lane == 31 && V * (k + 97) - P < cols, am + V * (k + 97));
     const bool whole = V * (k0 + 129) <= cols;  // warp-uniform
-    fma_slot<T, P, 0>(acc, cur, extra, xs, k, groups, cols, whole, lane);
-    fma_slot<T, P, 1>(acc, cur, extra, xs, k + 32, groups, cols, whole, lane);
-    fma_slot<T, P, 2>(acc, cur, extra, xs, k + 64, groups, cols, whole, lane);
-    fma_slot<T, P, 3>(acc, cur, extra, xs, k + 96, groups, cols, whole, lane);
+    fma_slot<T, P, 0, COMP>(acc, cmp, cur, extra, xs, k, groups, cols, whole, lane);
+    fma_slot<T, P, 1, COMP>(acc, cmp, cur, extra, xs, k + 32, groups, cols, whole, lane);
+    fma_slot<T, P, 2, COMP>(acc, cmp, cur, extra, xs, k + 64, groups, cols, whole, lane);
+    fma_slot<T, P, 3, COMP>(acc, cmp, cur, extra, xs, k + 96, groups, cols, whole, lane);
 #pragma unroll
     for (int q = 0; q < 4; ++q) cur[q] = nxt[q];
   }
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  slots_sum<COMP>(acc, cmp, s, c);
 }
 
 // A row of any width with x funnelled from device memory like M (rows past
 // the staging size): all shifts at run time.
-template <typename T>
-__device__ __forceinline__ T row_any(const T* am, int pm, const T* ax, int px,
-                                     long long groups, int cols, int lane) {
+template <typename T, bool COMP>
+__device__ __forceinline__ void row_any(const T* am, int pm, const T* ax, int px,
+                                        long long groups, int cols, int lane, T& s, T& c) {
   constexpr int V = kV<T>;
   T acc[4] = {T(0), T(0), T(0), T(0)};
+  T cmp[4] = {T(0), T(0), T(0), T(0)};
   for (long long k = lane; k - lane < groups; k += 128) {
     Vec<T> m[4], xv[4];
 #pragma unroll
@@ -289,11 +381,11 @@ __device__ __forceinline__ T row_any(const T* am, int pm, const T* ax, int px,
       const int nv = valid_in<T>(k + 32 * q, cols);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        acc[q] += (e < nv ? gm.v[e] : T(0)) * (e < nv ? gx.v[e] : T(0));
+        mac<COMP>(acc[q], cmp[q], e < nv ? gm.v[e] : T(0), e < nv ? gx.v[e] : T(0));
       }
     }
   }
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  slots_sum<COMP>(acc, cmp, s, c);
 }
 
 __device__ __forceinline__ void cp_async_elem(void* dst, const void* src, int bytes, bool valid) {
@@ -309,11 +401,14 @@ __device__ __forceinline__ void cp_async_elem(void* dst, const void* src, int by
 // groups in flight per lane (and four more being loaded); W < 32 is for
 // rows of at most W groups (one group a lane), where it gives the same sums
 // as W = 32 would (the lanes and slots that would hold the missing groups
-// add only zeros).
-template <typename T, int W, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS, WARPS == 16 ? 2 : 1)
+// add only zeros). COMP: the compensated sums (D1), float only, held to
+// four blocks an SM (64 registers; a few bytes spill, and the 32 warps an SM
+// beat 93 registers at 16 warps by 16%, in turns on the card).
+template <typename T, int W, int WARPS, bool COMP>
+__global__ void __launch_bounds__(32 * WARPS, WARPS == 16 ? 2 : (COMP ? 4 : 1))
 gemv_rows_kernel(const T* __restrict__ M, const T* __restrict__ x,
                  T* __restrict__ y, int rows, int cols, int row_tiles) {
+  static_assert(!COMP || sizeof(T) == 4, "the compensated products are float only");
   constexpr int V = kV<T>;
   const int lane = threadIdx.x & (W - 1);  // within the row's segment
   const size_t b = blockIdx.x / row_tiles;
@@ -328,7 +423,7 @@ gemv_rows_kernel(const T* __restrict__ M, const T* __restrict__ x,
   const long long groups = (cols + V - 1) / V;
 
   if constexpr (W == 32) {
-    T sum;
+    T sum, cmp = T(0);
     if (groups <= kStageGroups) {
       // x[b] into shared memory, group-aligned and zero past cols, by
       // element copies issued before the row's first loads and awaited after
@@ -348,18 +443,17 @@ gemv_rows_kernel(const T* __restrict__ M, const T* __restrict__ x,
       __syncthreads();
       if (!live) return;  // the whole warp leaves together
       switch (pm) {
-        case 1: sum = row_staged<T, 1>(am, xs, cur, groups, cols, lane); break;
-        case 2: sum = row_staged<T, 2 % V>(am, xs, cur, groups, cols, lane); break;
-        case 3: sum = row_staged<T, 3 % V>(am, xs, cur, groups, cols, lane); break;
-        default: sum = row_staged<T, 0>(am, xs, cur, groups, cols, lane);
+        case 1: row_staged<T, 1, COMP>(am, xs, cur, groups, cols, lane, sum, cmp); break;
+        case 2: row_staged<T, 2 % V, COMP>(am, xs, cur, groups, cols, lane, sum, cmp); break;
+        case 3: row_staged<T, 3 % V, COMP>(am, xs, cur, groups, cols, lane, sum, cmp); break;
+        default: row_staged<T, 0, COMP>(am, xs, cur, groups, cols, lane, sum, cmp);
       }
     } else {
       if (!live) return;
-      sum = row_any(am, pm, ax, px, groups, cols, lane);
+      row_any<T, COMP>(am, pm, ax, px, groups, cols, lane, sum, cmp);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
-    if (lane == 0) y[b * rows + i] = sum;
+    reduce_lanes<COMP, 32>(sum, cmp);
+    if (lane == 0) y[b * rows + i] = total<COMP>(sum, cmp);
   } else {
     // one group a lane: g = lane < W, all shifts at run time
     const long long g = lane;
@@ -371,12 +465,11 @@ gemv_rows_kernel(const T* __restrict__ M, const T* __restrict__ x,
     const Vec<T> gm = group_of<T, W>(m, m, m_extra, true, pm, lane);
     const Vec<T> gx = group_of<T, W>(xv, xv, x_extra, true, px, lane);
     const int nv = valid_in<T>(g, cols);
-    T sum = T(0);
+    T sum = T(0), cmp = T(0);
 #pragma unroll
-    for (int e = 0; e < V; ++e) sum += (e < nv ? gm.v[e] : T(0)) * (e < nv ? gx.v[e] : T(0));
-#pragma unroll
-    for (int off = W / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off, W);
-    if (lane == 0 && live) y[b * rows + i] = sum;
+    for (int e = 0; e < V; ++e) mac<COMP>(sum, cmp, e < nv ? gm.v[e] : T(0), e < nv ? gx.v[e] : T(0));
+    reduce_lanes<COMP, W>(sum, cmp);
+    if (lane == 0 && live) y[b * rows + i] = total<COMP>(sum, cmp);
   }
 }
 
@@ -384,9 +477,9 @@ gemv_rows_kernel(const T* __restrict__ M, const T* __restrict__ x,
 
 // One row's products into acc: the group of the lane (g, nv valid
 // elements) out of its aligned vector `own` and lane 31's `extra`, times u.
-template <typename T>
-__device__ __forceinline__ void add_row(Vec<T>& acc, const Vec<T>& own, const Vec<T>& extra,
-                                        int p, T u, int nv, int lane) {
+template <typename T, bool COMP>
+__device__ __forceinline__ void add_row(Vec<T>& acc, Vec<T>& cmp, const Vec<T>& own,
+                                        const Vec<T>& extra, int p, T u, int nv, int lane) {
   Vec<T> grp = own;
   if (p) {  // warp-uniform
     Vec<T> b;
@@ -398,17 +491,22 @@ __device__ __forceinline__ void add_row(Vec<T>& acc, const Vec<T>& own, const Ve
     grp = funnel(own, b, p);
   }
 #pragma unroll
-  for (int e = 0; e < kV<T>; ++e) acc.v[e] += (e < nv ? grp.v[e] : T(0)) * u;
+  for (int e = 0; e < kV<T>; ++e) mac<COMP>(acc.v[e], cmp.v[e], e < nv ? grp.v[e] : T(0), u);
 }
 
-template <typename T>
+// COMP: the compensated sums (D1), float only; the companions of the
+// warps' and the cluster's partial sums travel beside them.
+template <typename T, bool COMP>
 __global__ void __launch_bounds__(32 * kColsWarps)
 gemv_cols_kernel(const T* __restrict__ M, const T* __restrict__ u,
                  T* __restrict__ y, int rows, int cols, int col_tiles, int cluster) {
+  static_assert(!COMP || sizeof(T) == 4, "the compensated products are float only");
   constexpr int V = kV<T>;
   constexpr int kW = kColsWarps;
   __shared__ Vec<T> part[kW][32];
   __shared__ Vec<T> mine[32];
+  __shared__ Vec<T> part_c[COMP ? kW : 1][32];
+  __shared__ Vec<T> mine_c[COMP ? 32 : 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int rank = static_cast<int>(blockIdx.x % cluster);
@@ -426,6 +524,7 @@ gemv_cols_kernel(const T* __restrict__ M, const T* __restrict__ u,
 
   // rows i0 + w, i0 + w + kW, ... in order, four in flight
   Vec<T> acc = zero_vec<T>();
+  Vec<T> cmp = zero_vec<T>();
   int i = i0 + warp;
   for (; i + 3 * kW < i1; i += 4 * kW) {
     const T* r0 = Mb + static_cast<size_t>(i) * cols;
@@ -442,29 +541,33 @@ gemv_cols_kernel(const T* __restrict__ M, const T* __restrict__ u,
     const Vec<T> e2 = load_if(last && p2 && V * (g + 1) - p2 < cols, r2 - p2 + V * (g + 1));
     const Vec<T> e3 = load_if(last && p3 && V * (g + 1) - p3 < cols, r3 - p3 + V * (g + 1));
     const T u0 = ub[i], u1 = ub[i + kW], u2 = ub[i + 2 * kW], u3 = ub[i + 3 * kW];
-    add_row(acc, m0, e0, p0, u0, nv, lane);
-    add_row(acc, m1, e1, p1, u1, nv, lane);
-    add_row(acc, m2, e2, p2, u2, nv, lane);
-    add_row(acc, m3, e3, p3, u3, nv, lane);
+    add_row<T, COMP>(acc, cmp, m0, e0, p0, u0, nv, lane);
+    add_row<T, COMP>(acc, cmp, m1, e1, p1, u1, nv, lane);
+    add_row<T, COMP>(acc, cmp, m2, e2, p2, u2, nv, lane);
+    add_row<T, COMP>(acc, cmp, m3, e3, p3, u3, nv, lane);
   }
   for (; i < i1; i += kW) {
     const T* r0 = Mb + static_cast<size_t>(i) * cols;
     const int p0 = shift_of(r0);
     const Vec<T> m0 = load_if(V * g - p0 < cols, r0 - p0 + V * g);
     const Vec<T> e0 = load_if(last && p0 && V * (g + 1) - p0 < cols, r0 - p0 + V * (g + 1));
-    add_row(acc, m0, e0, p0, ub[i], nv, lane);
+    add_row<T, COMP>(acc, cmp, m0, e0, p0, ub[i], nv, lane);
   }
   part[warp][lane] = acc;
+  if constexpr (COMP) part_c[warp][lane] = cmp;
   __syncthreads();
   // the warps' sums in order; then the cluster's, in rank order
   if (warp == 0) {
 #pragma unroll 1
     for (int w = 1; w < kW; ++w) {
       const Vec<T> other = part[w][lane];
+      Vec<T> other_c = zero_vec<T>();  // no ternary of 16-byte structs: it goes to the stack
+      if constexpr (COMP) other_c = part_c[w][lane];
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc.v[e] += other.v[e];
+      for (int e = 0; e < V; ++e) merge<COMP>(acc.v[e], cmp.v[e], other.v[e], other_c.v[e]);
     }
     mine[lane] = acc;
+    if constexpr (COMP) mine_c[lane] = cmp;
   }
   if (cluster > 1) {
     cg::cluster_group cl = cg::this_cluster();
@@ -472,8 +575,10 @@ gemv_cols_kernel(const T* __restrict__ M, const T* __restrict__ u,
     if (rank == 0 && warp == 0) {
       for (int r = 1; r < cluster; ++r) {
         const Vec<T> other = cl.map_shared_rank(mine, r)[lane];
+        Vec<T> other_c = zero_vec<T>();
+        if constexpr (COMP) other_c = cl.map_shared_rank(mine_c, r)[lane];
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc.v[e] += other.v[e];
+        for (int e = 0; e < V; ++e) merge<COMP>(acc.v[e], cmp.v[e], other.v[e], other_c.v[e]);
       }
     }
     cl.sync();  // nobody leaves while its sums may still be read
@@ -482,7 +587,7 @@ gemv_cols_kernel(const T* __restrict__ M, const T* __restrict__ u,
     T* yb = y + b * static_cast<size_t>(cols) + V * g;
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      if (e < nv) yb[e] = acc.v[e];
+      if (e < nv) yb[e] = total<COMP>(acc.v[e], cmp.v[e]);
     }
   }
 }
@@ -493,19 +598,19 @@ inline bool aligned_to(const void* p, size_t n) {
   return (reinterpret_cast<uintptr_t>(p) % n) == 0;
 }
 
-template <typename T, int W, int WARPS>
+template <typename T, int W, int WARPS, bool COMP>
 int launch_rows_w(const T* M, const T* x, T* y, int batch, int rows, int cols,
                   cudaStream_t stream) {
   constexpr int kRowsPerBlock = WARPS * (32 / W);
   const int row_tiles = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const long long grid = static_cast<long long>(batch) * row_tiles;
   if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidValue);
-  gemv_rows_kernel<T, W, WARPS><<<static_cast<unsigned>(grid), 32 * WARPS, 0, stream>>>(
+  gemv_rows_kernel<T, W, WARPS, COMP><<<static_cast<unsigned>(grid), 32 * WARPS, 0, stream>>>(
       M, x, y, rows, cols, row_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool COMP>
 int launch_rows(const void* M, const void* x, void* y, int batch, int rows,
                 int cols, void* stream) {
   if (batch < 0 || rows < 0 || cols < 0 || !aligned_to(M, sizeof(T)) ||
@@ -518,17 +623,21 @@ int launch_rows(const void* M, const void* x, void* y, int batch, int rows,
   T* yp = static_cast<T*>(y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int groups = (cols + kV<T> - 1) / kV<T>;
-  if (groups <= 8) return launch_rows_w<T, 8, 8>(Mp, xp, yp, batch, rows, cols, st);
-  if (groups <= 16) return launch_rows_w<T, 16, 8>(Mp, xp, yp, batch, rows, cols, st);
+  if (groups <= 8) return launch_rows_w<T, 8, 8, COMP>(Mp, xp, yp, batch, rows, cols, st);
+  if (groups <= 16) return launch_rows_w<T, 16, 8, COMP>(Mp, xp, yp, batch, rows, cols, st);
   // blocks of 16 rows (x staged once for 16, 64 registers a thread) where
-  // the grid keeps four blocks per SM; else of 8, for more blocks
-  if (static_cast<long long>(batch) * ((rows + 15) / 16) >= kBigGrid) {
-    return launch_rows_w<T, 32, 16>(Mp, xp, yp, batch, rows, cols, st);
+  // the grid keeps four blocks per SM; else of 8, for more blocks. The
+  // compensated sums always take blocks of 8 (16-row blocks, also at 64
+  // registers, ran 4% slower)
+  if constexpr (!COMP) {
+    if (static_cast<long long>(batch) * ((rows + 15) / 16) >= kBigGrid) {
+      return launch_rows_w<T, 32, 16, COMP>(Mp, xp, yp, batch, rows, cols, st);
+    }
   }
-  return launch_rows_w<T, 32, 8>(Mp, xp, yp, batch, rows, cols, st);
+  return launch_rows_w<T, 32, 8, COMP>(Mp, xp, yp, batch, rows, cols, st);
 }
 
-template <typename T>
+template <typename T, bool COMP>
 int launch_cols(const void* M, const void* u, void* y, int batch, int rows,
                 int cols, int cluster, void* stream) {
   if (batch < 0 || rows < 0 || cols < 0 || cluster < 1 || cluster > kMaxCluster ||
@@ -544,7 +653,7 @@ int launch_cols(const void* M, const void* u, void* y, int batch, int rows,
   const T* up = static_cast<const T*>(u);
   T* yp = static_cast<T*>(y);
   if (cluster == 1) {
-    gemv_cols_kernel<T><<<static_cast<unsigned>(grid), 32 * kColsWarps, 0, st>>>(
+    gemv_cols_kernel<T, COMP><<<static_cast<unsigned>(grid), 32 * kColsWarps, 0, st>>>(
         Mp, up, yp, rows, cols, col_tiles, 1);
     return static_cast<int>(cudaGetLastError());
   }
@@ -560,7 +669,7 @@ int launch_cols(const void* M, const void* u, void* y, int batch, int rows,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t rc = cudaLaunchKernelEx(&cfg, gemv_cols_kernel<T>, Mp, up, yp,
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, gemv_cols_kernel<T, COMP>, Mp, up, yp,
                                             rows, cols, col_tiles, cluster);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
@@ -573,21 +682,32 @@ int launch_cols(const void* M, const void* u, void* y, int batch, int rows,
 // return value is cudaGetLastError() right after the launch (0 = success).
 extern "C" int gemv_rows_f32(const void* M, const void* x, void* y, int batch,
                              int rows, int cols, void* stream) {
-  return launch_rows<float>(M, x, y, batch, rows, cols, stream);
+  return launch_rows<float, false>(M, x, y, batch, rows, cols, stream);
 }
 
 extern "C" int gemv_rows_f64(const void* M, const void* x, void* y, int batch,
                              int rows, int cols, void* stream) {
-  return launch_rows<double>(M, x, y, batch, rows, cols, stream);
+  return launch_rows<double, false>(M, x, y, batch, rows, cols, stream);
 }
 
 // cluster: blocks (1-8) the rows of a column tile are split over.
 extern "C" int gemv_cols_f32(const void* M, const void* u, void* y, int batch,
                              int rows, int cols, int cluster, void* stream) {
-  return launch_cols<float>(M, u, y, batch, rows, cols, cluster, stream);
+  return launch_cols<float, false>(M, u, y, batch, rows, cols, cluster, stream);
 }
 
 extern "C" int gemv_cols_f64(const void* M, const void* u, void* y, int batch,
                              int rows, int cols, int cluster, void* stream) {
-  return launch_cols<double>(M, u, y, batch, rows, cols, cluster, stream);
+  return launch_cols<double, false>(M, u, y, batch, rows, cols, cluster, stream);
+}
+
+// D1: the compensated products, float only; the same arguments.
+extern "C" int gemv_rows_comp_f32(const void* M, const void* x, void* y, int batch,
+                                  int rows, int cols, void* stream) {
+  return launch_rows<float, true>(M, x, y, batch, rows, cols, stream);
+}
+
+extern "C" int gemv_cols_comp_f32(const void* M, const void* u, void* y, int batch,
+                                  int rows, int cols, int cluster, void* stream) {
+  return launch_cols<float, true>(M, u, y, batch, rows, cols, cluster, stream);
 }

@@ -59,12 +59,6 @@ def _err(msg):
     raise ValueError(msg)
 
 
-def _default_device() -> str:
-    """"auto" device: the CUDA card when PyTorch sees one, else the CPU —
-    the counterpart of JAX's default backend."""
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 def _default_dtype(device: str) -> str:
     """Device-aware dtype default: float32 on CUDA (the SpMV-bound loop
     moves half the bytes), float64 on the CPU (reference f64 parity for
@@ -96,10 +90,10 @@ class Settings:
     log_csv_filename: Optional[str] = None
 
     # --- extras (no reference analogue) ---
-    # Where the solve runs: "auto" | "cpu" | "cuda" | "cuda:<index>".
-    # "auto" resolves to the CUDA card when PyTorch sees one, else the
-    # CPU. An explicit CUDA device with no card raises; nothing falls back.
-    device: str = "auto"
+    # Where the solve runs: "cuda" | "cuda:<index>" | "cpu". The card by
+    # default; with no card that raises, naming device="cpu": nothing falls
+    # back to the CPU unasked.
+    device: str = "cuda"
     # Numeric dtype of the solve: "auto" | "float64" | "float32". "auto"
     # resolves per device at construction: float32 on CUDA, float64 on the
     # CPU (reference parity: the reference core is f64 unless built with
@@ -190,16 +184,17 @@ class Settings:
             _err("rho_x must be a positive finite number")
         if self.dtype not in ("auto", "float64", "float32"):
             _err("dtype must be 'auto', 'float64' or 'float32'")
-        if self.device == "auto":
-            self.device = _default_device()
         try:
             dev = torch.device(self.device)
         except (RuntimeError, TypeError):
-            _err(f"device must be 'auto', 'cpu' or 'cuda[:index]' (got {self.device!r})")
+            _err(f"device must be 'cuda[:index]' or 'cpu' (got {self.device!r})")
         if dev.type not in ("cpu", "cuda"):
-            _err(f"device must be 'auto', 'cpu' or 'cuda[:index]' (got {self.device!r})")
+            _err(f"device must be 'cuda[:index]' or 'cpu' (got {self.device!r})")
         if dev.type == "cuda" and not torch.cuda.is_available():
-            _err(f"device={self.device!r} requested but PyTorch sees no CUDA device")
+            _err(
+                f"device={self.device!r} (the default is 'cuda') but PyTorch "
+                f"sees no CUDA device; pass device=\"cpu\" to solve on the CPU"
+            )
         if self.dtype == "auto":
             self.dtype = _default_dtype(self.device)
         if int(self.check_interval) < 1:

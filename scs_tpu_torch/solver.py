@@ -10,7 +10,10 @@ under one of three strategies:
     SpMVs (csrc/bell_spmv.cu on CUDA).
 
 Every dense matvec of the first two (A x, A' y, P x, S^-1 r) goes through
-ops/dense.py — the hand-written kernels of csrc/gemv.cu on CUDA.
+ops/dense.py — the hand-written kernels of csrc/gemv.cu on CUDA. In
+scs_tpu's high-accuracy mode (f32 at eps below 3e-5, `Core.hi_acc`) the
+residuals, the refinement residuals and g take the compensated products of
+ops/df32.py instead (kernel D1 on CUDA).
 
 The math is scs_tpu's, step for step (see the scs_tpu/solver.py docstring
 for the derivation). What changes is where the control flow runs: JAX
@@ -40,6 +43,7 @@ import torch
 
 from .cones import ConeSpec
 from .info import FAILED, INFEASIBLE, SOLVED, UNBOUNDED, UNFINISHED
+from .ops import df32
 from .ops.projections import get_projector
 from .ops.dense import gemv_cols, gemv_rows
 from .ops.sparse import bell_spmv
@@ -228,21 +232,20 @@ class Core:
         # instead of two triangular solves
         self.use_inverse = not self.indirect and stg.direct_solver == "inverse"
         f32 = self.dtype == torch.float32
-        # scs_tpu's high-accuracy mode: f32 tolerances below what a plain
-        # f32 matvec can measure switch the residuals to compensated
-        # double-f32 arithmetic (its ops/df32.py), which is not ported
-        if f32 and min(stg.eps_abs, stg.eps_rel) < 3e-5 and not self.use_bell:
-            raise NotImplementedError(
-                "float32 with eps below 3e-5 on the dense path needs the "
-                "compensated double-f32 operators (scs_tpu's hi_acc mode, "
-                "ops/df32.py), not ported to scs_tpu_torch yet: ROADMAP.md "
-                "Queue 1 item 13; use dtype='float64' for tight tolerances"
-            )
+        # High-accuracy mode: f32 tolerances below what a plain f32 matvec
+        # can even measure (its evaluation noise, ~1e-7 |A||x|, exceeds an
+        # eps of 1e-6 at ordinary norms) switch the residual evaluation, the
+        # refinement residuals and g to the compensated products of
+        # ops/df32.py. Dense strategies only, as in scs_tpu.
+        self.hi_acc = f32 and min(stg.eps_abs, stg.eps_rel) < 3e-5 and not self.use_bell
         # Direct-path iterative refinement (auto: 1 pass for f32 — the
         # factor-solve error otherwise floors the DR residual; 2 on curved
-        # cones; 0 for f64 and for CG)
+        # cones; 2 compensated passes in high-accuracy mode, where the solve
+        # error must reach ~1e-7 relative; 0 for f64 and for CG)
         if stg.lin_refine_steps >= 0:
             self.refine_steps = int(stg.lin_refine_steps)
+        elif self.hi_acc and not self.indirect:
+            self.refine_steps = 2
         elif f32 and not self.indirect:
             self.refine_steps = 1 if spec.is_simple else 2
         else:
@@ -288,6 +291,39 @@ class Core:
         out = self.stg.rho_x * x + self._ATy(mats, dy * self._Ax(mats, x))
         if self.has_P:
             out = out + self._Px(mats, x)
+        return out
+
+    # -- compensated operators of the high-accuracy mode: the same bytes as
+    # the plain ones, ~1-ulp f32 results (ops/df32.py); the plain operators
+    # when hi_acc is off. Written over the last axes, so the batched core
+    # shares them (its _Ax/_ATy/_Px and mats carry the batch axis).
+
+    def _Ax_hi(self, mats: Mats, x):
+        if not self.hi_acc:
+            return self._Ax(mats, x)
+        return df32.mv(mats.A, x)
+
+    def _ATy_hi(self, mats: Mats, y):
+        if not self.hi_acc:
+            return self._ATy(mats, y)
+        return df32.tv(mats.A, y)
+
+    def _Px_hi(self, mats: Mats, x):
+        if not self.has_P:
+            return torch.zeros_like(x)
+        if not self.hi_acc:
+            return self._Px(mats, x)
+        return df32.mv(mats.P, x)
+
+    def _dot_hi(self, a, b):
+        if not self.hi_acc:
+            return torch.dot(a, b)
+        return df32.dot(a, b)
+
+    def _matvec_S_hi(self, mats: Mats, dy, x):
+        out = self.stg.rho_x * x + self._ATy_hi(mats, dy * self._Ax_hi(mats, x))
+        if self.has_P:
+            out = out + self._Px_hi(mats, x)
         return out
 
     def _build_S(self, mats: Mats, dy):
@@ -372,10 +408,12 @@ class Core:
         """S^-1 rhs by the factor, then refine_steps passes of iterative
         refinement: an f32 factor solve carries an O(cond(S)*eps) error that
         floors the DR residual, and one pass restores ~roundoff accuracy
-        for one extra S matvec and factor apply."""
+        for one extra S matvec and factor apply. In high-accuracy mode the
+        refinement residual is compensated, so the solve converges to ~1 ulp
+        rather than cond(S)*eps_f32."""
         x = self._apply_factor(L, rhs)
         for _ in range(self.refine_steps):
-            x = x + self._apply_factor(L, rhs - self._matvec_S(mats, dy, x))
+            x = x + self._apply_factor(L, rhs - self._matvec_S_hi(mats, dy, x))
         return x
 
     def _lin_solve(self, state: State, mats: Mats, rhs, tol):
@@ -424,7 +462,7 @@ class Core:
         dependent half of setup, recomputed on update(b, c) while the factor
         L is reused."""
         dy = 1.0 / self._ry(scale)
-        rhs = mats.cn - self._ATy(mats, dy * mats.bn)
+        rhs = mats.cn - self._ATy_hi(mats, dy * mats.bn)
         if self.indirect:
             tol = torch.clamp_min(self.eps_floor * _norm(rhs), self.stg.cg_tol_min * 10)
             gx, _ = self._cg(
@@ -435,9 +473,9 @@ class Core:
         else:
             # g enters every iterate via the tau update, so its solve error
             # floors the achievable residual: refined like the per-
-            # iteration solves
+            # iteration solves (compensated residuals in high-accuracy mode)
             gx = self._direct_solve(mats, L, dy, rhs)
-        gy = dy * (mats.bn + self._Ax(mats, gx))
+        gy = dy * (mats.bn + self._Ax_hi(mats, gx))
         return gx, gy
 
     def _setup(self, mats: Mats, scale):
@@ -732,9 +770,11 @@ class Core:
         ry = self._ry(state.scale)
         st_hat = ry * v[n : n + m]  # = tau * normalized slack
 
-        Axb = self._Ax(mats, xbar)
-        Aty = self._ATy(mats, ybar)
-        Pxb = self._Px(mats, xbar) if self.has_P else torch.zeros_like(xbar)
+        # compensated in high-accuracy mode: a plain f32 matvec's evaluation
+        # noise would exceed the tolerance it is held to
+        Axb = self._Ax_hi(mats, xbar)
+        Aty = self._ATy_hi(mats, ybar)
+        Pxb = self._Px_hi(mats, xbar)
 
         Dinv = 1.0 / mats.D
         Einv = 1.0 / mats.E
@@ -767,9 +807,9 @@ class Core:
         nPx = _norm(Einv * Pxb) / (sc_c * safe_tau)
         nAty = _norm(Einv * Aty) / (sc_c * safe_tau)
 
-        ctx = torch.dot(mats.cn, xbar) / (sc_c * sc_b * safe_tau)
-        bty = torch.dot(mats.bn, ybar) / (sc_b * sc_c * safe_tau)
-        xPx = torch.dot(xbar, Pxb) / (sc_b * sc_c * safe_tau**2)
+        ctx = self._dot_hi(mats.cn, xbar) / (sc_c * sc_b * safe_tau)
+        bty = self._dot_hi(mats.bn, ybar) / (sc_b * sc_c * safe_tau)
+        xPx = self._dot_hi(xbar, Pxb) / (sc_b * sc_c * safe_tau**2)
         gap = torch.abs(xPx + ctx + bty)
         pobj = 0.5 * xPx + ctx
         dobj = -0.5 * xPx - bty

@@ -1,6 +1,9 @@
 """The flagship dense workload of the scs_tpu bench on the card: B dense
 m x n QPs over the nonnegative cone (B 512, m 1500, n 1000, f32, eps 1e-4).
 
+  * gen_batch         — scs_tpu.bench_cli.gen_batch itself, on the host in
+                        numpy, bit for bit (the bench's `hi_acc` cell and the
+                        polish tests run on it; minutes at B = 512);
   * gen_qp_batch      — the batch, generated on the solver's device from a
                         seeded torch.Generator by the construction of
                         scs_tpu.bench_cli.gen_batch (well-conditioned A, PSD
@@ -28,6 +31,31 @@ import numpy as np
 import torch
 
 FLAGSHIP = (512, 1500, 1000)
+
+
+def gen_batch(B, m, n, seed=1234, dtype=np.float64, return_opt=False):
+    """Dense random QP batch, feasible by construction (the scs_tpu bench's
+    generator, scs_tpu/bench_cli.py:56-80, the same numbers from the same
+    seed): A (B, m, n) = N(0, 1)/sqrt(m), P = 0.1/(n//8) G G' + 1e-4 I full,
+    y = max(z, 0), s = y - z, c = -A'y - Px, b = Ax + s. Returns (A, P, b, c),
+    and with return_opt=True also p* (B,), the planted optimal objectives
+    (exact by the KKT construction, in f64)."""
+    rng = np.random.RandomState(seed)
+    A = (rng.standard_normal((B, m, n)) / np.sqrt(m)).astype(dtype)
+    G = rng.standard_normal((B, n, n // 8)).astype(dtype)
+    P = (0.1 / (n // 8)) * (G @ G.transpose(0, 2, 1))
+    P += 1e-4 * np.eye(n, dtype=dtype)
+    z = rng.standard_normal((B, m)).astype(dtype)
+    y = np.maximum(z, 0)
+    s = y - z
+    x = rng.standard_normal((B, n)).astype(dtype)
+    c = -(A.transpose(0, 2, 1) @ y[..., None])[..., 0] - (P @ x[..., None])[..., 0]
+    b = (A @ x[..., None])[..., 0] + s
+    if return_opt:
+        Px = (P @ x[..., None])[..., 0]
+        p_star = 0.5 * np.einsum("bn,bn->b", x, Px) + np.einsum("bn,bn->b", c, x)
+        return A, P, b, c, p_star
+    return A, P, b, c
 
 
 def gen_qp_batch(B, m, n, seed=1234, device="cuda", dtype=torch.float32, sub=64):

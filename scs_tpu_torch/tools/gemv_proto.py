@@ -1,7 +1,7 @@
 """Batched dense GEMV on the card: the hand-written kernels against
 torch.bmm — the counterpart of the entry point of tools/gemv_proto.py.
 
-    python -m scs_tpu_torch.tools.gemv_proto [B m n] [--main-shapes]
+    python -m scs_tpu_torch.tools.gemv_proto [B m n] [--main-shapes] [--comp]
         [--other OLD_GEMV.cu] [--variant OTHER_DESIGN.cu ...] [--cluster-sweep]
         [--json PATH]
 
@@ -20,13 +20,25 @@ and the host time per call of the wrapper and of torch.bmm: a host clock around 
 taken before the one synchronise at the end (fewer calls than the launch
 queue holds, so no call waits for the device).
 
+--comp: D1, the compensated products of ops/df32.py (gemv_rows_comp /
+gemv_cols_comp), at every shape the high-accuracy paths launch them
+(COMP_SHAPES), M one element into its buffer, and rows whose products
+cancel: each result against the float64 product (COMP_REL, per problem),
+the plain version's too, a bit-equal repeat, the misaligned M against its
+aligned copy; device ms from graph replays beside the bound and beside G1 /
+G2 at the same shape, and the plain version's ms. With --variant, also D1
+of each variant source against the package's, in turns, at the timed
+shapes (COMP_TIMED).
+
 --other OLD.cu: a build of the previous gemv.cu design, with its entry
 points (`git show c9d2815:scs_tpu_torch/ops/csrc/gemv.cu`: gemv_cols takes
 a scratch and a row split, and launches a second kernel when the split is
 above 1), timed against the package's build in turns within this call
 (other, this, this, other), CUDA-graph replays of the bare entry points at
 every main shape. --variant SRC.cu (any number): the same for a source
-with the package's entry points (another design of either kernel).
+with the package's entry points (another design of either kernel, or an
+earlier build of this one); each line says whether the two builds' results
+are bit-equal.
 --cluster-sweep: gemv_cols at every main shape under every cluster size
 1-8, for the package's build and each variant (what cols_cluster picks
 against the alternatives).
@@ -46,6 +58,7 @@ import time
 
 import torch
 
+from ..ops import df32
 from ..ops.dense import gemv_cols, gemv_cols_ref, gemv_rows, gemv_rows_ref
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -79,6 +92,37 @@ MAIN_SHAPES = [
 # M a contiguous view one element into its buffer: every row 4 bytes past a
 # 16-byte boundary
 MISALIGNED = ("flagship A, one element in", (512, 1500, 1000), F32, ("rows", "cols"))
+
+# D1, float32 only: the hi_acc cell's A and P (chip_smoke.py phase 11), the
+# single dense QP's A (phase 7), a batch of dots (mv on (B, 1, k)), ragged
+# widths (rows of <= 16 groups, rows too long to stage x for)
+COMP_SHAPES = [
+    ("hi_acc A", (32, 1500, 1000), ("rows", "cols")),
+    ("hi_acc P", (32, 1000, 1000), ("rows",)),
+    ("single dense A", (1, 1500, 1000), ("rows", "cols")),
+    ("hi_acc dots", (32, 1, 1000), ("rows",)),
+    ("ragged", (5, 1501, 1771), ("rows", "cols")),
+    ("ragged, narrow", (7, 185, 61), ("rows", "cols")),
+    ("ragged, x not staged", (3, 20, 4099), ("rows", "cols")),
+]
+COMP_MISALIGNED = ("hi_acc A, one element in", (32, 1500, 1000), ("rows", "cols"))
+# a single dot's relative error is its condition number times the rounding
+# of any sum that is not compensated: on such rows (the dots, the cancelling
+# case) the plain version and G1/G2 are reported, not held to COMP_REL
+# the hi_acc A with products that cancel: half of each row (column) is the
+# negated other half, times a vector 2^-10 apart, so the result is ~4e4
+# times smaller than the sum of the products' magnitudes. A plain f32 sum,
+# or a p-stream whose additions were contracted into the products, is off
+# by ~1e-4 relative there; the compensated kernel must still meet COMP_REL
+COMP_CANCEL = ("hi_acc A, cancelling", (32, 1500, 1000), ("rows", "cols"))
+# the shapes D1 is timed at: the hi_acc cell's A and P, the single QP's A
+COMP_TIMED = ("hi_acc A", "hi_acc P", "single dense A")
+# relative error against the float64 product, per problem, in norm
+# (tests/test_hi_accuracy.py::test_df32_matvec_accuracy)
+COMP_REL = 5e-7
+# operations per element of M: the product, its error by FMA, the TwoSum of
+# the p-stream (6) and the two additions into the companion sum
+COMP_FLOPS = 11
 
 
 def card():
@@ -262,6 +306,170 @@ def main_shapes(tag, dtypes=(F32, F64)):
     return res
 
 
+def _cancelling(M, vec, axis):
+    """Make half of M along `axis` (1: rows, 2: columns) the negated other
+    half and the matching half of vec the other half times 1 + 2^-10."""
+    h = M.shape[axis] // 2
+    if axis == 2:
+        M[:, :, h : 2 * h] = -M[:, :, :h]
+    else:
+        M[:, h : 2 * h, :] = -M[:, :h, :]
+    vec[:, h : 2 * h] = (vec[:, :h].double() * (1 + 2.0**-10)).float()
+
+
+def _rel_per_problem(y, exact):
+    """Largest ||y_b - exact_b|| / ||exact_b|| over the batch."""
+    num = torch.linalg.vector_norm(y.double() - exact, dim=-1)
+    return float((num / torch.linalg.vector_norm(exact, dim=-1)).max())
+
+
+def check_comp(shape, kernels, gen, timed=True, offset=0, cancel=False):
+    """D1 at one float32 shape: for each kernel, one launch per call, the
+    result and the plain version's against the float64 product (COMP_REL
+    per problem; the plain version is held to it where a problem's output
+    is a vector and does not cancel), the plain G1/G2's error beside, a bit-equal repeat, and
+    (offset) the result on an aligned copy of M; then, if timed, device ms
+    (graph replays) beside the bound, G1/G2's device ms at the shape and the
+    plain version's ms (CUDA events). Returns {kernel: {...}}."""
+    M, v, u = make_inputs(shape, F32, gen, offset)
+    out = {}
+    for which in kernels:
+        if which == "rows":
+            kern, ref, plain_gemv, vec = df32.mv, df32.mv_ref, gemv_rows, v.clone()
+        else:
+            kern, ref, plain_gemv, vec = df32.tv, df32.tv_ref, gemv_cols, u.clone()
+        Mk = M.clone() if cancel else M
+        if cancel:
+            _cancelling(Mk, vec, 2 if which == "rows" else 1)
+        before = kern.launches
+        y = kern(Mk, vec)
+        y_again = kern(Mk, vec)
+        if kern.launches != before + 2:
+            raise AssertionError(f"D1 {which} {shape}: {kern.launches - before} launches in 2 calls")
+        Md, vd = Mk.double(), vec.double()
+        exact = ((Md @ vd[:, :, None])[:, :, 0] if which == "rows"
+                 else (vd[:, None, :] @ Md)[:, 0, :])
+        del Md
+        y_p = ref(Mk, vec)
+        rec = {
+            "rel_err": _rel_per_problem(y, exact),
+            "plain_rel_err": _rel_per_problem(y_p, exact),
+            "gemv_rel_err": _rel_per_problem(plain_gemv(Mk, vec), exact),
+            "max_abs_err": float((y - y_p).abs().max()),
+        }
+        del exact, y_p
+        plain_held = not cancel and y.shape[-1] > 1
+        if rec["rel_err"] > COMP_REL or (plain_held and rec["plain_rel_err"] > COMP_REL):
+            raise AssertionError(f"D1 {which} {shape} (cancelling {cancel}): {rec}")
+        if not torch.equal(y, y_again):
+            raise AssertionError(f"D1 {which} {shape}: a repeated launch differs")
+        if offset:
+            rec["equals_aligned_copy"] = torch.equal(kern(Mk.clone(), vec), y)
+            if not rec["equals_aligned_copy"]:
+                raise AssertionError(f"D1 {which} {shape}: misaligned M differs from its aligned copy")
+        if timed:
+            B, r, c = shape
+            n_out = r if which == "rows" else c
+            by = (B * r * c + B * (r + c - n_out) + B * n_out) * 4 / HBM_BYTES_PER_S
+            op = COMP_FLOPS * B * r * c / 67e12
+            rec.update(
+                ms=time_graph_ms(lambda: kern(Mk, vec)),
+                bound_ms=max(by, op) * 1e3,
+                bound_by="bytes" if by >= op else "operations",
+                gemv_ms=time_graph_ms(lambda: plain_gemv(Mk, vec)),
+                plain_ms=time_ms(lambda: ref(Mk, vec), reps=5),
+            )
+        out[which] = rec
+        del Mk
+    return out
+
+
+def fmt_comp(label, shape, which, rec, tag):
+    """One report line for check_comp's record."""
+    line = (f"D1 {label} {shape} f32 df32.{'mv' if which == 'rows' else 'tv'}: relative error "
+            f"against f64 {rec['rel_err']:.2e} (limit {COMP_REL:g}; plain version "
+            f"{rec['plain_rel_err']:.2e}, plain G{'1' if which == 'rows' else '2'} "
+            f"{rec['gemv_rel_err']:.2e}), max |kernel - plain| {rec['max_abs_err']:.3e}, "
+            f"repeat bit-equal")
+    if "equals_aligned_copy" in rec:
+        line += f", equal to the aligned copy: {rec['equals_aligned_copy']}"
+    if "ms" in rec:
+        line += (f"; device {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                 f"{100 * rec['bound_ms'] / rec['ms']:.0f}%), G{'1' if which == 'rows' else '2'} at the "
+                 f"shape {rec['gemv_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms")
+    return f"{line} [{tag}]"
+
+
+def comp_shapes(tag, timed_labels=None, prefix=""):
+    """check_comp at every COMP_SHAPES shape, the misaligned and the
+    cancelling case; timed where the label is in `timed_labels` (all when
+    None); each line starts with `prefix`. Returns {(label, kernel):
+    record}."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    res = {}
+    cases = [(*c, 0, False) for c in COMP_SHAPES]
+    cases += [(*COMP_MISALIGNED, 1, False), (*COMP_CANCEL, 0, True)]
+    for label, shape, kernels, offset, cancel in cases:
+        timed = timed_labels is None or label in timed_labels
+        rec = check_comp(shape, kernels, gen, timed=timed, offset=offset, cancel=cancel)
+        for which, r in rec.items():
+            print(prefix + fmt_comp(label, shape, which, r, tag), flush=True)
+            res[(label, which)] = r
+        torch.cuda.empty_cache()
+    return res
+
+
+def compare_comp_sources(tag, variants):
+    """D1 of each variant source (with the package's entry points) against
+    the package's build at the COMP_TIMED shapes: bare entry points in CUDA
+    graphs, in turns (variant, this, this, variant), after checking that
+    the two give the same bits."""
+    from ..ops import _kernels  # noqa: PLC0415
+    from ..ops.dense import cols_cluster  # noqa: PLC0415
+
+    abi = {"gemv_rows_comp_f32": [_VP, _VP, _VP, _I, _I, _I, _VP],
+           "gemv_cols_comp_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP]}
+    libs = {"this": _kernels.load("gemv")}
+    for k, src in enumerate(variants):
+        libs[f"variant {src.rsplit('/', 1)[-1]}"] = _bind(src, f"gemv_variant{k}", abi)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    res = []
+    for label, shape, kernels in COMP_SHAPES:
+        if label not in COMP_TIMED:
+            continue
+        M, v, u = make_inputs(shape, F32, gen)
+        B, r, c = shape
+        for which in kernels:
+            vec, n_out = (v, r) if which == "rows" else (u, c)
+            ys = {name: torch.empty((B, n_out), device="cuda") for name in libs}
+
+            def call(name, which=which, vec=vec, ys=ys):
+                stream = torch.cuda.current_stream().cuda_stream
+                if which == "rows":
+                    fn = libs[name].gemv_rows_comp_f32
+                    return fn(M.data_ptr(), vec.data_ptr(), ys[name].data_ptr(), B, r, c, stream)
+                fn = libs[name].gemv_cols_comp_f32
+                return fn(M.data_ptr(), vec.data_ptr(), ys[name].data_ptr(), B, r, c,
+                          cols_cluster(B, r, c, 4), stream)
+
+            for name in libs:
+                if call(name) != 0:
+                    raise AssertionError(f"D1 {which} {shape}: {name} launch failed")
+            for alt in libs:
+                if alt == "this":
+                    continue
+                same = torch.equal(ys[alt], ys["this"])
+                turns = [(t, time_graph_ms(lambda t=t: call(t))) for t in (alt, "this", "this", alt)]
+                print(f"in turns, D1 {label} {shape} {which}: "
+                      + ", ".join(f"{t} {ms:.4f} ms" for t, ms in turns)
+                      + f"; bit-equal: {same} [{tag}]", flush=True)
+                res.append({"label": label, "shape": shape, "kernel": f"D1 {which}",
+                            "against": alt, "turns": turns, "bit_equal": same})
+        del M, v, u
+        torch.cuda.empty_cache()
+    return res
+
+
 def _old_splits(B, r, c, itemsize):
     """The row ranges the previous design's gemv_cols (commit c9d2815) cut a
     product into: its cols_splits."""
@@ -341,15 +549,17 @@ def compare_sources(tag, other_src=None, variants=()):
                     raise AssertionError(f"gemv_{which} {shape}: {alt} launch failed")
                 if not bool(torch.all((y_alt - y_this).abs() <= lim)):
                     raise AssertionError(f"gemv_{which} {shape}: {alt} build disagrees")
+                same = torch.equal(y_alt, y_this)
                 turns = [
                     (t, time_graph_ms(lambda t=t: call(which, t, y_alt if t == alt else y_this)))
                     for t in (alt, "this", "this", alt)
                 ]
                 print(f"in turns, {label} {shape} {str(dtype)[6:]} gemv_{which}: "
                       + ", ".join(f"{t} {ms:.4f} ms" for t, ms in turns)
-                      + f"; bound {gemv_bound_ms(shape, dtype):.4f} ms [{tag}]", flush=True)
+                      + f"; bound {gemv_bound_ms(shape, dtype):.4f} ms; bit-equal: {same} [{tag}]",
+                      flush=True)
                 res.append({"label": label, "shape": shape, "kernel": f"gemv_{which}",
-                            "against": alt, "turns": turns})
+                            "against": alt, "turns": turns, "bit_equal": same})
             del lim, y_this, y_alt
         del M, v, u, scratch
         torch.cuda.empty_cache()
@@ -407,6 +617,9 @@ def main(argv=None):
     main_mode = "--main-shapes" in argv
     if main_mode:
         argv.remove("--main-shapes")
+    comp_mode = "--comp" in argv
+    if comp_mode:
+        argv.remove("--comp")
     sweep_mode = "--cluster-sweep" in argv
     if sweep_mode:
         argv.remove("--cluster-sweep")
@@ -417,7 +630,9 @@ def main(argv=None):
     out = {"card": tag}
     if main_mode:
         out["main_shapes"] = main_shapes(tag)
-    else:
+    if comp_mode:
+        out["comp"] = [{"label": k[0], "kernel": k[1], **r} for k, r in comp_shapes(tag).items()]
+    if not (main_mode or comp_mode):
         B, m, n = (int(a) for a in argv) if argv else (128, 1536, 1024)
         rec = check_shape((B, m, n), F32, ("rows", "cols"),
                           torch.Generator(device="cuda").manual_seed(0), plain=True)
@@ -426,6 +641,8 @@ def main(argv=None):
         out["shape"] = rec
     if "--other" in opts or variants:
         out["turns"] = compare_sources(tag, opts.get("--other"), variants)
+    if comp_mode and variants:
+        out["comp_turns"] = compare_comp_sources(tag, variants)
     if sweep_mode:
         out["cluster_sweep"] = cluster_sweep(tag, variants)
     if "--json" in opts:

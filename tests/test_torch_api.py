@@ -43,6 +43,9 @@ import scs_tpu
 import scs_tpu_torch
 from scs_tpu.bench_cli import gen_bell_lp
 
+# the port's entry points run on the card unless told otherwise
+CPU = dict(device="cpu")
+
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,7 +141,7 @@ def _solve_both(name, **extra):
     data, cone = make()
     kw = dict(solver_strategy="bell", bell_block_size=bs, eps_abs=eps,
               eps_rel=eps, verbose=False, max_iters=20000, **extra)
-    return data, cone, eps, scs_tpu.solve(data, cone, **kw), scs_tpu_torch.solve(data, cone, **kw)
+    return data, cone, eps, scs_tpu.solve(data, cone, **kw), scs_tpu_torch.solve(data, cone, **kw, **CPU)
 
 
 def _assert_same_run(data, eps, sj, st):
@@ -179,7 +182,7 @@ def test_lp_solve_matches_scs_tpu_converged_cg(name):
 def test_zero_cone_lp_solves():
     data, cone = _sparse_lp(60, 45, 2, z=10)
     sol = scs_tpu_torch.solve(data, cone, solver_strategy="bell", bell_block_size=16,
-                              eps_abs=1e-7, eps_rel=1e-7, verbose=False, max_iters=20000)
+                              eps_abs=1e-7, eps_rel=1e-7, verbose=False, max_iters=20000, **CPU)
     assert sol["info"]["status"] == "solved"
     _kkt_ok(data, cone, sol, 1e-7)
 
@@ -190,8 +193,8 @@ def test_update_b_then_warm_solve():
               eps_rel=1e-7, verbose=False, max_iters=20000)
     b2 = data["b"] + 0.1 * np.abs(np.random.RandomState(9).randn(len(data["b"])))
     out = {}
-    for pkg in (scs_tpu, scs_tpu_torch):
-        solver = pkg.SCS(data, cone, **kw)
+    for pkg, dev in ((scs_tpu, {}), (scs_tpu_torch, CPU)):
+        solver = pkg.SCS(data, cone, **kw, **dev)
         first = solver.solve()
         solver.update(b=b2)
         out[pkg.__name__] = (first, solver.solve())  # warm from the first
@@ -227,7 +230,7 @@ def test_certificates_match_scs_tpu(make, status):
     kw = dict(solver_strategy="bell", bell_block_size=8, verbose=False,
               max_iters=5000)
     sj = scs_tpu.solve(data, cone, **kw)
-    st = scs_tpu_torch.solve(data, cone, **kw)
+    st = scs_tpu_torch.solve(data, cone, **kw, **CPU)
     assert st["info"]["status"] == sj["info"]["status"] == status
     key = "y" if status == "infeasible" else "x"
     cert = st[key]
@@ -257,7 +260,7 @@ def test_full_bell_solve_never_imports_jax():
         "A = (sparse.random(60, 45, density=0.1, random_state=0) + "
         "sparse.eye(60, 45)).tocsc()\n"
         "sol = scs_tpu_torch.solve({'A': A, 'b': np.ones(60), 'c': -np.ones(45)},"
-        " {'l': 60}, solver_strategy='bell', bell_block_size=16, verbose=False)\n"
+        " {'l': 60}, solver_strategy='bell', bell_block_size=16, verbose=False, device='cpu')\n"
         "assert sol['info']['status'] in ('solved', 'unbounded'), sol['info']['status']\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'scs_tpu.'))))\n"
     )
@@ -271,14 +274,41 @@ def test_full_bell_solve_never_imports_jax():
 @pytest.mark.parametrize("kw,match", [
     ({"solver_strategy": "bell", "phase_timing": "always"}, "instrumented"),
     ({"phase_timing": "always"}, "instrumented"),  # AUTO: direct
-    # f32 below eps 3e-5 on the dense path: scs_tpu's compensated hi_acc mode
-    ({"solver_strategy": "direct", "dtype": "float32", "eps_abs": 1e-6}, "Queue 1 item 13"),
-    ({"solver_strategy": "indirect", "dtype": "float32", "eps_rel": 1e-6}, "Queue 1 item 13"),
 ])
 def test_unported_strategies_raise(kw, match):
     data, cone = _sparse_lp(60, 45, 0)
     with pytest.raises(NotImplementedError, match=match):
-        scs_tpu_torch.SCS(data, cone, verbose=False, **kw)
+        scs_tpu_torch.SCS(data, cone, verbose=False, **kw, **CPU)
+
+
+@pytest.mark.parametrize("kw", [
+    {"solver_strategy": "direct", "dtype": "float32", "eps_abs": 1e-6},
+    {"solver_strategy": "indirect", "dtype": "float32", "eps_rel": 1e-6},
+])
+def test_hi_acc_strategies_resolve_and_solve(kw):
+    """f32 below eps 3e-5 on a dense strategy is the compensated hi_acc
+    mode: resolved as scs_tpu resolves it, and solve() certifies the LP
+    with the same status."""
+    data, cone = _sparse_lp(60, 45, 0)
+    kw = dict(kw, verbose=False, max_iters=20000)
+    sj, st = scs_tpu.SCS(data, cone, **kw), scs_tpu_torch.SCS(data, cone, **kw, **CPU)
+    assert st.core.hi_acc and sj.core.hi_acc
+    assert st.core.refine_steps == sj.core.refine_steps
+    a, b = sj.solve()["info"], st.solve()["info"]
+    assert a["status"] == b["status"] == "solved"
+    assert abs(a["pobj"] - b["pobj"]) <= 1e-5 * (1 + abs(a["pobj"]))
+
+
+def test_default_device_is_the_card():
+    """The default device is "cuda"; with no card it raises and names
+    device="cpu" instead of falling back."""
+    data, cone = _sparse_lp(60, 45, 0)
+    if torch.cuda.is_available():
+        assert scs_tpu_torch.SCS(data, cone, verbose=False).stg.device == "cuda"
+        return
+    for call in (scs_tpu_torch.SCS, scs_tpu_torch.solve):
+        with pytest.raises(ValueError, match='device="cpu"'):
+            call(data, cone, verbose=False)
 
 
 # -- the dense strategies --------------------------------------------------------
@@ -308,7 +338,7 @@ def _solve_dense_both(problem, mode, eps=1e-7, **extra):
     data, cone = DENSE_PROBLEMS[problem]()
     kw = dict(DENSE_MODES[mode], eps_abs=eps, eps_rel=eps, verbose=False,
               max_iters=20000, **extra)
-    return data, cone, scs_tpu.solve(data, cone, **kw), scs_tpu_torch.solve(data, cone, **kw)
+    return data, cone, scs_tpu.solve(data, cone, **kw), scs_tpu_torch.solve(data, cone, **kw, **CPU)
 
 
 @pytest.mark.parametrize("mode", sorted(DENSE_MODES))
@@ -350,7 +380,7 @@ def test_strategy_resolution_matches_scs_tpu():
                      ({"linear_solver": scs_tpu_torch.LinearSolver.CPU_DENSE}, "direct"),
                      ({"linear_solver": "cpu_indirect"}, "indirect"),
                      ({"linear_solver": scs_tpu_torch.LinearSolver.PALLAS_CG}, "indirect")]:
-        solver = scs_tpu_torch.SCS(data, cone, verbose=False, **kw)
+        solver = scs_tpu_torch.SCS(data, cone, verbose=False, **kw, **CPU)
         assert solver.stg.solver_strategy == want, kw
         assert (solver.mats.A is not None) and solver.mats.bell is None
         assert solver.core.use_inverse is False  # the single path's default
@@ -368,7 +398,7 @@ def test_dense_update_reuses_the_factor():
     rng = np.random.RandomState(9)
     b2 = data["b"] + 0.1 * np.abs(rng.randn(len(data["b"])))
     c2 = data["c"] + 0.1 * rng.randn(len(data["c"]))
-    solver = scs_tpu_torch.SCS(data, cone, **kw)
+    solver = scs_tpu_torch.SCS(data, cone, **kw, **CPU)
     assert solver.core.factorizations == 1
     L0 = solver._state0.L
     first = solver.solve()
@@ -377,7 +407,7 @@ def test_dense_update_reuses_the_factor():
     second = solver.solve(warm_start=False)
     assert solver.core.factorizations == 1  # adaptive_scale off: none in the solve
     data2 = dict(data, b=b2, c=c2)
-    fresh = scs_tpu_torch.solve(data2, cone, **kw)
+    fresh = scs_tpu_torch.solve(data2, cone, **kw, **CPU)
     sj = scs_tpu.SCS(data, cone, **kw)
     sj.update(b=b2, c=c2)
     ref = sj.solve(warm_start=False)
@@ -398,21 +428,21 @@ def test_dense_update_reuses_the_factor():
 def test_dense_input_validation_matches_scs_tpu():
     data, cone = _qp()
     dense = dict(data, A=data["A"].toarray(), P=_full_P(data))
-    for pkg in (scs_tpu, scs_tpu_torch):
+    for pkg, dev in ((scs_tpu, {}), (scs_tpu_torch, CPU)):
         with pytest.raises(TypeError, match="A is required to be a sparse matrix"):
-            pkg.SCS(dense, cone, solver_strategy="direct", verbose=False)
+            pkg.SCS(dense, cone, solver_strategy="direct", verbose=False, **dev)
         with pytest.raises(TypeError, match="P is required to be a sparse matrix"):
-            pkg.SCS(dict(data, P=_full_P(data)), cone, solver_strategy="direct", verbose=False)
+            pkg.SCS(dict(data, P=_full_P(data)), cone, solver_strategy="direct", verbose=False, **dev)
         with pytest.raises(ValueError, match="A shape not compatible"):
-            pkg.SCS(dict(data, b=data["b"][:-1]), {"l": 49}, solver_strategy="direct", verbose=False)
+            pkg.SCS(dict(data, b=data["b"][:-1]), {"l": 49}, solver_strategy="direct", verbose=False, **dev)
         with pytest.raises(ValueError, match="P shape not compatible"):
-            pkg.SCS(dict(data, P=data["P"][:-1, :-1]), cone, solver_strategy="direct", verbose=False)
+            pkg.SCS(dict(data, P=data["P"][:-1, :-1]), cone, solver_strategy="direct", verbose=False, **dev)
         with pytest.raises(ValueError, match="direct_solver"):
-            pkg.SCS(data, cone, solver_strategy="direct", direct_solver="lu", verbose=False)
+            pkg.SCS(data, cone, solver_strategy="direct", direct_solver="lu", verbose=False, **dev)
     # dense arrays are accepted on request, and a full (not triu) P too
     kw = dict(solver_strategy="direct", eps_abs=1e-7, eps_rel=1e-7, verbose=False)
-    a = scs_tpu_torch.solve(dense, cone, allow_dense_input=True, **kw)
-    b = scs_tpu_torch.solve(data, cone, **kw)
+    a = scs_tpu_torch.solve(dense, cone, allow_dense_input=True, **kw, **CPU)
+    b = scs_tpu_torch.solve(data, cone, **kw, **CPU)
     assert a["info"]["iter"] == b["info"]["iter"]
     np.testing.assert_array_equal(a["x"], b["x"])
 
@@ -427,12 +457,13 @@ def test_dense_solve_never_imports_jax():
         "sparse.eye(60, 45)).tocsc()\n"
         "d = {'A': A, 'b': np.ones(60), 'c': -np.ones(45)}\n"
         "for kw in ({}, {'solver_strategy': 'indirect'}):\n"
-        "    sol = scs_tpu_torch.solve(d, {'l': 60}, verbose=False, **kw)\n"
+        "    sol = scs_tpu_torch.solve(d, {'l': 60}, verbose=False, device='cpu', **kw)\n"
         "    assert sol['info']['status'] in ('solved', 'unbounded'), sol['info']['status']\n"
         "r = scs_tpu_torch.solve_batch({'A': np.stack([A.toarray()] * 3), 'b': np.ones((3, 60)),"
-        " 'c': -np.ones((3, 45))}, {'l': 60})\n"
+        " 'c': -np.ones((3, 45))}, {'l': 60}, device='cpu')\n"
         "assert len(r) == 3\n"
         "import scs_tpu_torch.tools.gemv_proto, scs_tpu_torch.tools.flagship\n"
+        "import scs_tpu_torch.polish, scs_tpu_torch.ops.df32\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'scs_tpu.'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
@@ -444,13 +475,13 @@ def test_dense_solve_never_imports_jax():
 
 def test_validation_matches_scs_tpu():
     data, cone = _sparse_lp(60, 45, 0)
-    for pkg in (scs_tpu, scs_tpu_torch):
+    for pkg, dev in ((scs_tpu, {}), (scs_tpu_torch, CPU)):
         with pytest.raises(ValueError, match="cone dimension"):
-            pkg.SCS(data, {"l": 59}, solver_strategy="bell", verbose=False)
+            pkg.SCS(data, {"l": 59}, solver_strategy="bell", verbose=False, **dev)
         with pytest.raises(TypeError, match="invalid keyword"):
-            pkg.SCS(data, cone, solver_strategy="bell", no_such_key=1)
+            pkg.SCS(data, cone, solver_strategy="bell", no_such_key=1, **dev)
         with pytest.raises(TypeError, match="sparse"):
-            pkg.SCS(dict(data, A=data["A"].toarray()), cone, solver_strategy="bell")
+            pkg.SCS(dict(data, A=data["A"].toarray()), cone, solver_strategy="bell", **dev)
     with pytest.raises(ValueError, match="no CUDA device") if not torch.cuda.is_available() \
             else pytest.raises(NotImplementedError):
         scs_tpu_torch.SCS(data, cone, solver_strategy="bell", device="cuda",
@@ -461,7 +492,7 @@ def test_verbose_and_csv_log(tmp_path, capsys):
     data, cone = _sparse_lp(60, 45, 0)
     path = tmp_path / "log.csv"
     sol = scs_tpu_torch.solve(data, cone, solver_strategy="bell", bell_block_size=16,
-                              verbose=True, log_csv_filename=str(path))
+                              verbose=True, log_csv_filename=str(path), **CPU)
     assert sol["info"]["status"] == "solved"
     out = capsys.readouterr().out
     assert "block-ELL" in out and "status:  solved" in out

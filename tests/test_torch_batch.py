@@ -34,6 +34,9 @@ from scs_tpu_torch import batch_core
 from scs_tpu_torch.convert import batch_state_from_numpy, mats_from_numpy
 from scs_tpu_torch.solver import AAState, Core, Diag, Mats, State
 
+# the port's entry points run on the card unless told otherwise
+CPU = dict(device="cpu")
+
 torch.set_num_threads(1)
 
 M, N = 96, 64
@@ -68,7 +71,7 @@ def pairs():
         sj = jb.BatchedSCS(dict(data), {"l": M}, **kw)
         out[name] = {
             "sj": sj,
-            "st": st.BatchedSCS(dict(data), {"l": M}, **kw),
+            "st": st.BatchedSCS(dict(data), {"l": M}, **kw, **CPU),
             "mats_t": mats_from_numpy(_np(sj.mats)),
             "vchunk": jax.jit(jax.vmap(sj.core._chunk)),
         }
@@ -83,7 +86,7 @@ def ragged_pair():
     data, _ = _gen_sparse_batch(3, 100, 70, seed=5, with_P=True)
     kw = dict(BASE, **STAB, eps_abs=1e-6, eps_rel=1e-6)
     sj = jb.BatchedSCS(dict(data), {"l": 100}, **kw)
-    return sj, st.BatchedSCS(dict(data), {"l": 100}, **kw), mats_from_numpy(_np(sj.mats))
+    return sj, st.BatchedSCS(dict(data), {"l": 100}, **kw, **CPU), mats_from_numpy(_np(sj.mats))
 
 
 # -- (a) the batched pack ------------------------------------------------------
@@ -256,7 +259,7 @@ def test_batched_chunks_equal_single_core_per_problem(with_P):
     the LP above."""
     data, _ = _gen_sparse_batch(4, M, N, seed=3, with_P=with_P)
     kw = dict(BASE, **STAB, eps_abs=1e-6, eps_rel=1e-6, adaptive_scale=False, check_interval=10)
-    sb = st.BatchedSCS(dict(data), {"l": M}, **kw)
+    sb = st.BatchedSCS(dict(data), {"l": M}, **kw, **CPU)
     core1 = Core(M, N, with_P, sb.spec, sb.stg)
     batched = sb._states
     for _ in range(2):
@@ -289,10 +292,10 @@ def test_in_chunk_rescale_batch_equals_single_solves():
     not the batching, is why batched and single counts differ.)"""
     data, _ = _gen_sparse_batch(4, M, N, seed=11)
     kw = dict(BASE, eps_abs=1e-4, eps_rel=1e-4, max_iters=3000)
-    res = st.solve_batch(dict(data), {"l": M}, rescale_in_chunk=True, **kw)
+    res = st.solve_batch(dict(data), {"l": M}, rescale_in_chunk=True, **kw, **CPU)
     for i, r in enumerate(res):
         one = {"A": data["A"][i], "b": data["b"][i], "c": data["c"][i]}
-        s = st.solve(one, {"l": M}, check_interval=50, **kw)["info"]
+        s = st.solve(one, {"l": M}, check_interval=50, **kw, **CPU)["info"]
         assert r["info"]["status"] == s["status"] == "solved"
         assert r["info"]["iter"] == s["iter"]
         assert r["info"]["scale_updates"] == s["scale_updates"]
@@ -309,7 +312,7 @@ def _infos(res):
 def test_end_to_end_default_settings_lp():
     data, p_star = _gen_sparse_batch(3, M, N, seed=7)
     kw = dict(BASE, eps_abs=1e-4, eps_rel=1e-4, max_iters=3000)
-    it_t = _infos(st.solve_batch(dict(data), {"l": M}, **kw))
+    it_t = _infos(st.solve_batch(dict(data), {"l": M}, **kw, **CPU))
     it_j = _infos(jb.solve_batch(dict(data), {"l": M}, **kw))
     assert [i["status"] for i in it_t] == [i["status"] for i in it_j] == ["solved"] * 3
     for a, b, ps in zip(it_t, it_j, p_star):
@@ -329,7 +332,7 @@ def qp8():
 
 def test_end_to_end_stabilised_iteration_counts(qp8):
     data, p_star, kw, it_j, _ = qp8
-    sol = st.BatchedSCS(dict(data), {"l": M}, **kw)
+    sol = st.BatchedSCS(dict(data), {"l": M}, **kw, **CPU)
     it_t = _infos(sol.solve())
     assert [i["status"] for i in it_t] == [i["status"] for i in it_j] == ["solved"] * 8
     assert [i["iter"] for i in it_t] == [i["iter"] for i in it_j]
@@ -357,7 +360,7 @@ def test_compaction_matches_scs_tpu(qp8, monkeypatch):
     monkeypatch.setattr(tb.BatchedSCS, "_compact", staticmethod(spy))
     sj = jb.BatchedSCS(dict(data), {"l": M}, **kw)
     it_j = _infos(sj.solve())
-    sol = st.BatchedSCS(dict(data), {"l": M}, **kw)
+    sol = st.BatchedSCS(dict(data), {"l": M}, **kw, **CPU)
     it_t = _infos(sol.solve())
     assert sizes and sizes[-1] < 8  # retirement compacted the batch
     assert sol.device_prob_iters == sj.device_prob_iters < 8 * max(i["iter"] for i in it_t)
@@ -380,7 +383,7 @@ def qp3():
 
 def test_qp_sparse_P_default_settings(qp3):
     data, p_star, kw = qp3
-    res = st.solve_batch(dict(data), {"l": M}, **kw)
+    res = st.solve_batch(dict(data), {"l": M}, **kw, **CPU)
     it_j = _infos(jb.solve_batch(dict(data), {"l": M}, **kw))
     for r, b, ps, A, P, bb, c in zip(res, it_j, p_star, data["A"], data["P"], data["b"], data["c"]):
         a = r["info"]
@@ -399,7 +402,7 @@ def test_qp_sparse_P_default_settings(qp3):
 
 def test_reset_resolves_bit_for_bit_and_update_equals_fresh(qp3):
     data, _, kw = qp3
-    sol = st.BatchedSCS(dict(data), {"l": M}, **kw)
+    sol = st.BatchedSCS(dict(data), {"l": M}, **kw, **CPU)
     r1 = sol.solve()
     sol.reset()
     r2 = sol.solve()
@@ -410,7 +413,7 @@ def test_reset_resolves_bit_for_bit_and_update_equals_fresh(qp3):
     b2 = 1.1 * np.asarray(data["b"])
     sol.update(b=b2)
     r3 = sol.solve()
-    fresh = st.BatchedSCS(dict(data), {"l": M}, **kw)
+    fresh = st.BatchedSCS(dict(data), {"l": M}, **kw, **CPU)
     fresh.update(b=b2)
     r4 = fresh.solve()
     sj = jb.BatchedSCS(dict(data), {"l": M}, **kw)
@@ -429,7 +432,7 @@ def test_reset_resolves_bit_for_bit_and_update_equals_fresh(qp3):
 
 def test_time_limit_gives_inaccurate(qp3):
     data, _, kw = qp3
-    res = st.solve_batch(dict(data), {"l": M}, **dict(kw, time_limit_secs=1e-9))
+    res = st.solve_batch(dict(data), {"l": M}, **dict(kw, time_limit_secs=1e-9), **CPU)
     for r in res:
         assert r["info"]["status"].endswith("_inaccurate"), r["info"]["status"]
         assert r["info"]["iter"] <= 100  # one segment, then the speculative one
@@ -439,7 +442,7 @@ def test_keyboard_interrupt_reports_sigint(qp3, monkeypatch):
     """Ctrl-C in the second segment: the in-flight state is finalized and
     every unfinished problem reports 'interrupted' with its iterates."""
     data, _, kw = qp3
-    sol = st.BatchedSCS(dict(data), {"l": M}, **kw)
+    sol = st.BatchedSCS(dict(data), {"l": M}, **kw, **CPU)
     run_seg = sol.core.run_seg
     calls = []
 
@@ -460,9 +463,9 @@ def test_dense_input_under_bell_raises_same_valueerror():
     rng = np.random.RandomState(0)
     data = {"A": rng.randn(2, 8, 4), "b": rng.randn(2, 8), "c": rng.randn(2, 4)}
     msgs = []
-    for cls in (jb.BatchedSCS, tb.BatchedSCS):
+    for cls, dev in ((jb.BatchedSCS, {}), (tb.BatchedSCS, CPU)):
         with pytest.raises(ValueError, match="list of scipy sparse") as e:
-            cls(dict(data), {"l": 8}, solver_strategy="bell", verbose=False)
+            cls(dict(data), {"l": 8}, solver_strategy="bell", verbose=False, **dev)
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1]
 
@@ -470,13 +473,25 @@ def test_dense_input_under_bell_raises_same_valueerror():
 @pytest.mark.parametrize("kw,item", [
     (dict(solver_strategy="bell", phase_timing="always"), "item 6"),
     (dict(solver_strategy="auto", phase_timing="always"), "item 6"),  # auto: direct
-    # f32 below eps 3e-5 on a dense batch: scs_tpu's compensated hi_acc mode
-    (dict(solver_strategy="direct", dtype="float32", eps_abs=1e-6, eps_rel=1e-6), "item 13"),
 ])
 def test_unported_strategies_raise(kw, item):
     data, _ = _gen_sparse_batch(2, M, N, seed=1)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        st.BatchedSCS(data, {"l": M}, verbose=False, **kw)
+        st.BatchedSCS(data, {"l": M}, verbose=False, **kw, **CPU)
+
+
+def test_hi_acc_batch_resolves_and_solves():
+    """f32 below eps 3e-5 on a dense batch is the compensated hi_acc mode,
+    resolved as under scs_tpu's vmapped Core (2 refinement passes), and
+    every problem certifies."""
+    data = _gen_dense_batch(2, DM, DN, seed=4)
+    kw = dict(solver_strategy="direct", dtype="float32", eps_abs=1e-6, eps_rel=1e-6,
+              max_iters=50000, verbose=False)
+    sj, stt = jb.BatchedSCS(_copy(data), {"l": DM}, **kw), st.BatchedSCS(_copy(data), {"l": DM}, **kw, **CPU)
+    assert stt.core.hi_acc and sj.core.hi_acc
+    assert stt.core.refine_steps == sj.core.refine_steps == 2
+    for r in stt.solve():
+        assert r["info"]["status"] == "solved"
 
 
 def test_convert_batch_state_types(pairs):
@@ -578,7 +593,7 @@ def dense_pairs():
         out[name] = {
             "data": data,
             "sj": sj,
-            "st": st.BatchedSCS(_copy(data), {"l": DM}, **kw),
+            "st": st.BatchedSCS(_copy(data), {"l": DM}, **kw, **CPU),
             "mats_t": mats_from_numpy(_np(sj.mats)),
             "vchunk": jax.jit(jax.vmap(sj.core._chunk)),
         }
@@ -697,7 +712,7 @@ def test_dense_lp_default_settings_solves_like_scs_tpu():
     data = _gen_dense_batch(5, DM, DN, seed=8, with_P=False)
     kw = dict(dtype="float64", eps_abs=1e-6, eps_rel=1e-6, max_iters=20000)
     rj = jb.solve_batch(_copy(data), {"l": DM}, **kw)
-    rt = st.solve_batch(_copy(data), {"l": DM}, **kw)
+    rt = st.solve_batch(_copy(data), {"l": DM}, **kw, **CPU)
     for a, b in zip(rt, rj):
         assert a["info"]["status"] == b["info"]["status"] == "solved"
         assert abs(a["info"]["pobj"] - b["info"]["pobj"]) <= 1e-5 * (1 + abs(b["info"]["pobj"]))
@@ -711,13 +726,13 @@ def test_dense_in_chunk_rescale_batch_equals_single_solves():
     data = _gen_dense_batch(4, DM, DN, seed=5)
     kw = dict(DENSE_BASE, solver_strategy="direct", direct_solver="inverse",
               check_interval=25, max_iters=20000)
-    res = st.BatchedSCS(_copy(data), {"l": DM}, rescale_in_chunk=True, **kw).solve()
+    res = st.BatchedSCS(_copy(data), {"l": DM}, rescale_in_chunk=True, **kw, **CPU).solve()
     from scipy import sparse
 
     for i, r in enumerate(res):
         one = {"A": sparse.csc_matrix(data["A"][i]), "P": sparse.csc_matrix(np.triu(data["P"][i])),
                "b": data["b"][i], "c": data["c"][i]}
-        single = st.solve(one, {"l": DM}, **kw)
+        single = st.solve(one, {"l": DM}, **kw, **CPU)
         assert r["info"]["status"] == single["info"]["status"] == "solved"
         assert r["info"]["iter"] == single["info"]["iter"], i
         assert r["info"]["scale_updates"] == single["info"]["scale_updates"]
@@ -731,7 +746,7 @@ def test_dense_compaction_matches_scs_tpu():
     data = _gen_dense_batch(B, m, n, seed=2)
     kw = dict(DENSE_BASE, solver_strategy="direct", max_iters=4000)
     sj = jb.BatchedSCS(_copy(data), {"l": m}, **kw)
-    stt = st.BatchedSCS(_copy(data), {"l": m}, **kw)
+    stt = st.BatchedSCS(_copy(data), {"l": m}, **kw, **CPU)
     rj, rt = sj.solve(), stt.solve()
     assert stt.bucket_ladder[0] == 64 and stt.bucket_ladder[-1] == 32
     iters_j = np.array([r["info"]["iter"] for r in rj])
@@ -743,7 +758,7 @@ def test_dense_compaction_matches_scs_tpu():
     pt = np.array([r["info"]["pobj"] for r in rt])
     np.testing.assert_allclose(pt, pj, rtol=1e-6, atol=1e-6)
     # without compaction: the same answers in one bucket
-    flat = st.BatchedSCS(_copy(data), {"l": m}, batch_compaction=False, **kw)
+    flat = st.BatchedSCS(_copy(data), {"l": m}, batch_compaction=False, **kw, **CPU)
     rf = flat.solve()
     assert flat.bucket_ladder == [64]
     np.testing.assert_array_equal([r["info"]["iter"] for r in rf], iters_t)
@@ -754,7 +769,7 @@ def test_dense_update_and_reset_reuse_the_factor():
     data = _gen_dense_batch(4, DM, DN, seed=5)
     kw = dict(DENSE_BASE, solver_strategy="direct")
     keep = _copy(data)
-    solver = st.BatchedSCS(data, {"l": DM}, **kw)
+    solver = st.BatchedSCS(data, {"l": DM}, **kw, **CPU)
     for k in data:  # the caller's arrays are never scaled in place
         np.testing.assert_array_equal(data[k], keep[k])
     core = solver.core
@@ -792,24 +807,24 @@ def test_dense_input_forms_and_validation():
 
     data = _gen_dense_batch(3, 16, 10, seed=1)
     kw = dict(DENSE_BASE, solver_strategy="direct")
-    ref = st.solve_batch(_copy(data), {"l": 16}, **kw)
+    ref = st.solve_batch(_copy(data), {"l": 16}, **kw, **CPU)
     as_lists = dict(data, A=[sparse.csc_matrix(a) for a in data["A"]], P=list(data["P"]))
     as_tensors = {k: torch.as_tensor(v) for k, v in data.items()}
     for other in (as_lists, as_tensors):
-        res = st.solve_batch(other, {"l": 16}, **kw)
+        res = st.solve_batch(other, {"l": 16}, **kw, **CPU)
         for a, b in zip(res, ref):
             np.testing.assert_array_equal(a["x"], b["x"])
     np.testing.assert_array_equal(as_tensors["A"].numpy(), data["A"])  # untouched
-    auto = st.BatchedSCS(_copy(data), {"l": 16}, dtype="float64")  # eps 1e-4
+    auto = st.BatchedSCS(_copy(data), {"l": 16}, dtype="float64", **CPU)  # eps 1e-4
     assert auto.stg.solver_strategy == "direct" and auto.stg.direct_solver == "inverse"
     assert auto.stg.lin_refine_steps == 0 and auto.core.refine_steps == 0
-    tight = st.BatchedSCS(_copy(data), {"l": 16}, dtype="float64", eps_abs=1e-6, eps_rel=1e-5)
+    tight = st.BatchedSCS(_copy(data), {"l": 16}, dtype="float64", eps_abs=1e-6, eps_rel=1e-5, **CPU)
     assert tight.stg.lin_refine_steps == -1
-    for cls in (jb.BatchedSCS, tb.BatchedSCS):
+    for cls, dev in ((jb.BatchedSCS, {}), (tb.BatchedSCS, CPU)):
         with pytest.raises(ValueError, match=r"shape \(B, m, n\)"):
-            cls(dict(data, A=data["A"][0]), {"l": 16}, **kw)
+            cls(dict(data, A=data["A"][0]), {"l": 16}, **kw, **dev)
         with pytest.raises(ValueError, match="cone dimensions incompatible"):
-            cls(_copy(data), {"l": 15}, **kw)
+            cls(_copy(data), {"l": 15}, **kw, **dev)
     res, mask = auto.polish(auto.solve())
     assert len(res) == 3 and not mask.any()
 
@@ -818,12 +833,12 @@ def test_dense_f32_batch_solves_at_eps():
     """The flagship's settings at a small size on the CPU: f32, eps 1e-4,
     the inverse apply without refinement; objectives against the f64 run."""
     data = _gen_dense_batch(6, DM, DN, seed=13)
-    kw = dict(eps_abs=1e-4, eps_rel=1e-4, max_iters=20000, device="cpu")
-    s32 = st.BatchedSCS(_copy(data), {"l": DM}, dtype="float32", **kw)
+    kw = dict(eps_abs=1e-4, eps_rel=1e-4, max_iters=20000)
+    s32 = st.BatchedSCS(_copy(data), {"l": DM}, dtype="float32", **kw, **CPU)
     assert s32.mats.A.dtype == torch.float32 and s32._L.dtype == torch.float32
     assert s32.core.use_inverse and s32.core.refine_steps == 0
     r32 = s32.solve()
-    r64 = st.solve_batch(_copy(data), {"l": DM}, dtype="float64", **kw)
+    r64 = st.solve_batch(_copy(data), {"l": DM}, dtype="float64", **kw, **CPU)
     for a, b in zip(r32, r64):
         assert a["info"]["status"] == b["info"]["status"] == "solved"
         assert a["x"].dtype == np.float32

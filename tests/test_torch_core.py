@@ -32,6 +32,9 @@ import scs_tpu_torch
 from scs_tpu_torch.convert import mats_from_numpy, state_from_numpy
 from scs_tpu_torch.solver import Diag
 
+# the port's entry points run on the card unless told otherwise
+CPU = dict(device="cpu")
+
 torch.set_num_threads(1)
 
 RTOL = 1e-10
@@ -84,7 +87,7 @@ def _np(tree):
 def pair(request):
     data, cone = PROBLEMS[request.param]()
     sj = scs_tpu.SCS(data, cone, **KW)
-    st = scs_tpu_torch.SCS(data, cone, **KW)
+    st = scs_tpu_torch.SCS(data, cone, **KW, **CPU)
     cj = sj.core
     return {
         "sj": sj, "cj": cj, "ct": st.core,
@@ -232,7 +235,7 @@ def dense_pair(request):
     data, cone = PROBLEMS[prob]()
     kw = dict(DENSE_KW, **DENSE_MODES[mode])
     sj = scs_tpu.SCS(data, cone, **kw)
-    st = scs_tpu_torch.SCS(data, cone, **kw)
+    st = scs_tpu_torch.SCS(data, cone, **kw, **CPU)
     return {
         "sj": sj, "cj": sj.core, "ct": st.core, "st": st, "mode": mode,
         "mats_t": mats_from_numpy(_np(sj.mats)),
@@ -298,7 +301,7 @@ def test_dense_refinement_pass_matches():
     refinement residual runs through the dense matvecs."""
     data, cone = _qp()
     kw = dict(DENSE_KW, solver_strategy="direct", direct_solver="inverse", lin_refine_steps=2)
-    sj, st = scs_tpu.SCS(data, cone, **kw), scs_tpu_torch.SCS(data, cone, **kw)
+    sj, st = scs_tpu.SCS(data, cone, **kw), scs_tpu_torch.SCS(data, cone, **kw, **CPU)
     assert st.core.refine_steps == sj.core.refine_steps == 2
     _close(st._state0.gx.numpy(), sj._state0.gx)
     out_j = jax.jit(sj.core._step)(sj._state0, sj.mats)
@@ -365,18 +368,24 @@ def jnp_f64(v):
     return jax.numpy.asarray(v, jax.numpy.float64)
 
 
-def test_hi_acc_combination_raises():
-    """f32 below eps 3e-5 on the dense path is scs_tpu's compensated
-    hi_acc mode (ops/df32.py), not ported: the core refuses it by name;
-    f64 at the same eps, f32 at eps 1e-4, and f32 bell are fine."""
+@pytest.mark.parametrize("kw,hi_acc,refine", [
+    # f32 below eps 3e-5 on a dense strategy: the compensated hi_acc mode
+    (dict(solver_strategy="direct", dtype="float32", eps_abs=1e-6, eps_rel=1e-6), True, 2),
+    (dict(solver_strategy="indirect", dtype="float32", eps_abs=1e-4, eps_rel=1e-5), True, 0),
+    # f32 at eps 1e-4, f64 at eps 1e-6 and f32 bell at eps 1e-6 stay plain
+    (dict(solver_strategy="direct", dtype="float32"), False, 1),
+    (dict(solver_strategy="direct", dtype="float64", eps_abs=1e-6, eps_rel=1e-6), False, 0),
+    (dict(solver_strategy="bell", bell_block_size=16, dtype="float32", eps_abs=1e-6,
+          eps_rel=1e-6), False, 0),
+])
+def test_hi_acc_combination_resolves(kw, hi_acc, refine):
+    """The core resolves hi_acc and its refinement passes as scs_tpu's does
+    (f32, min(eps) < 3e-5, not bell; 2 passes under "direct"), and the
+    dense configurations solve."""
     data, cone = _qp()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        scs_tpu_torch.SCS(data, cone, solver_strategy="direct", dtype="float32",
-                          eps_abs=1e-6, eps_rel=1e-6, verbose=False)
-    with pytest.raises(NotImplementedError, match="hi_acc"):
-        scs_tpu_torch.SCS(data, cone, solver_strategy="indirect", dtype="float32",
-                          eps_abs=1e-4, eps_rel=1e-5, verbose=False)
-    ok = scs_tpu_torch.SCS(data, cone, solver_strategy="direct", dtype="float32", verbose=False)
-    assert ok.core.refine_steps == 1 and ok.solve()["info"]["status"] == "solved"
-    scs_tpu_torch.SCS(data, cone, solver_strategy="bell", bell_block_size=16,
-                      dtype="float32", eps_abs=1e-6, eps_rel=1e-6, verbose=False)
+    sj = scs_tpu.SCS(data, cone, verbose=False, **kw)
+    st = scs_tpu_torch.SCS(data, cone, verbose=False, **kw, **CPU)
+    assert st.core.hi_acc == bool(sj.core.hi_acc) == hi_acc
+    assert st.core.refine_steps == sj.core.refine_steps == refine
+    if kw["solver_strategy"] != "bell":
+        assert st.solve()["info"]["status"] == "solved"
