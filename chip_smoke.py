@@ -89,9 +89,28 @@ Phases, one line each; any failure raises and exits nonzero:
      solved problem within 1e-5 of p*; (c) the same batch in plain f64 at
      eps 1e-6, which the card has and the TPU has not: all solved, f64 KKT.
      D1's launches are zeroed just before each of (a) and (b) and read just
-     after.
+     after;
+ 12. the port's bench (scs_tpu_torch/bench_cli.py) at its defaults, in this
+     process with its stdout captured: exactly one JSON line; the flagship
+     512/512 solved in the first and the amortized pass, in float32 (the
+     f64 accuracy fallback not taken); the bell, mixed_cone, hi_acc and
+     bell_batch sub-metrics "solved", hi_acc 32/32 certified, mixed_cone's
+     3-decimal objective parity; every kernel of the bench's path (K1, K3,
+     G1, G2, C1, C2, D1; the counts zeroed just before and read just after)
+     launched; then BENCH_BELL=1: solved, cross-check gap under 1e-3. The
+     bench's headline numbers and wall time are printed;
+ 13. phase_timing="always" on the card: the instrumented loop on phase 7's
+     dense QP (f64, "direct") and phase 5's bell QP, each solved with one
+     CSV row per iteration (iter stepping by 1) and measured lin_sys / cone
+     timers summing under solve_time, its seconds an iteration printed
+     beside the pipelined loop's; a batched "always" solve of the mixed_cone
+     cell with its timers filled and the iteration counts of "auto"; and
+     (not gated) the auto/instrumented ratio of the timers on
+     tests/test_observability.py's 900 x 600 QP.
 
-Then one JSON line describing the kernels, and last the contract line
+Then the whole run's wall time, one JSON line describing the kernels (each
+with its launches on the main path and in phase 12's bench run), and last
+the contract line
 {"ok": true, "device": {...}}. With no CUDA device the script exits
 nonzero before printing any result.
 
@@ -103,11 +122,16 @@ idle share of the device, kernels by device time) and one whole solve; it
 prints no contract line.
 """
 
+import contextlib
+import csv
+import io
 import json
+import os
 import statistics
 from collections import Counter
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -115,6 +139,8 @@ import torch
 from scipy import sparse
 
 import scs_tpu_torch
+from scs_tpu_torch import bench_cli
+from scs_tpu_torch.bench_cli import gen_bell_batch, gen_bell_lp
 from scs_tpu_torch.ops import _kernels, df32
 from scs_tpu_torch.ops.dense import gemv_cols, gemv_rows
 from scs_tpu_torch.ops.sparse import (
@@ -168,40 +194,6 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 
 
-def gen_bell_lp(m, n, density, bs=128, width=6, seed=7):
-    """Block-structured sparse LP (network/assignment style): each bs-row
-    block touches `width` random bs-column tiles. A copy of
-    scs_tpu.bench_cli.gen_bell_lp (that module imports jax); a test
-    keeps the two equal."""
-    from scipy import sparse as sp
-
-    rng = np.random.RandomState(seed)
-    nbr, nbc = -(-m // bs), -(-n // bs)
-    tile_density = min(1.0, density * nbc / width)
-    per_tile = max(1, int(tile_density * bs * bs))
-    rows_l, cols_l = [], []
-    for r in range(nbr):
-        tiles = rng.choice(nbc, min(width, nbc), replace=False)
-        rr = rng.randint(0, bs, size=per_tile * len(tiles))
-        cc = rng.randint(0, bs, size=per_tile * len(tiles))
-        tb = np.repeat(tiles, per_tile)
-        rows_l.append(r * bs + rr)
-        cols_l.append(tb * bs + cc)
-    rows = np.concatenate(rows_l)
-    cols = np.concatenate(cols_l)
-    keep = (rows < m) & (cols < n)  # ragged edge tiles
-    rows, cols = rows[keep], cols[keep]
-    vals = rng.randn(len(rows))
-    A = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsc()
-    A = A + sp.eye(m, n, format="csc")  # full row rank
-    x0 = rng.randn(n)
-    s = np.abs(rng.randn(m))
-    b = A @ x0 + s
-    y = np.abs(rng.randn(m))
-    c = -(A.T @ y)
-    return {"A": sp.csc_matrix(A), "b": b, "c": c}
-
-
 def gen_bell_qp(m, n, density, seed=11):
     """gen_bell_lp's constraints plus a sparse PSD P = 0.1 B'B + 0.5 I
     (B with ~3 random entries per row) and a random c; P is passed as
@@ -213,27 +205,6 @@ def gen_bell_qp(m, n, density, seed=11):
     data["P"] = sparse.triu(P, format="csc")
     data["c"] = rng.randn(n)
     return data
-
-
-def gen_bell_batch(B, m, n, density, width=6, seed=11):
-    """B sparse LPs sharing gen_bell_lp's block pattern, with per-problem
-    values, b and c. A copy of the generator inside
-    scs_tpu.bench_cli._bell_batch_submetric (which fixes seed=11; that
-    module imports jax); a test keeps the two equal."""
-    rng = np.random.RandomState(seed)
-    pat = gen_bell_lp(m, n, density, width=width, seed=seed)["A"]
-    As, bs_, cs = [], [], []
-    for _ in range(B):
-        Ai = pat.copy()
-        Ai.data = rng.randn(Ai.nnz)
-        Ai = (Ai + sparse.eye(m, n, format="csc")).tocsc()
-        x0 = rng.randn(n)
-        s = np.abs(rng.randn(m))
-        y = np.abs(rng.randn(m))
-        As.append(Ai)
-        bs_.append(Ai @ x0 + s)
-        cs.append(-(Ai.T @ y))
-    return {"A": As, "b": np.stack(bs_), "c": np.stack(cs)}
 
 
 def time_ms(fn, reps=20, inner=1):
@@ -1342,7 +1313,198 @@ def phase_hi_acc():
     return out
 
 
+# Phase 12's kernels: every kernel the bench's path launches (C3, the box
+# projection, is not on it: no cell has a box cone)
+BENCH_KERNELS = {
+    "bell_spmv": bell_spmv, "bell_spmv_batched": bell_spmv_batched,
+    "gemv_rows": gemv_rows, "gemv_cols": gemv_cols,
+    "proj_exp": cone_ops._proj_exp_batch, "proj_pow": cone_ops._proj_pow_batch,
+    "df32.mv": df32.mv, "df32.tv": df32.tv,
+}
+BENCH_SUBMETRICS = ("bell", "mixed_cone", "hi_acc", "bell_batch")
+
+
+def _run_bench(env):
+    """bench_cli.main() in this process under `env` (every other BENCH_*
+    variable unset), stdout and stderr captured. Returns (the one JSON
+    line's object, stderr text, wall s); raises unless stdout is exactly
+    one parseable line."""
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            bench_cli.main()
+    finally:
+        for k in env:
+            del os.environ[k]
+        os.environ.update(saved)
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} stdout lines: {lines[:3]}")
+    return json.loads(lines[0]), err.getvalue(), wall
+
+
+def phase_bench(name_and_limit):
+    """Phase 12: the port's bench CLI at its defaults on the card, then
+    BENCH_BELL=1. Returns each bench kernel's launches in the default run."""
+    _zero_counts(*BENCH_KERNELS.values(), cone_ops._proj_box)
+    out, err, wall = _run_bench({"BENCH_DEVICE": "cuda"})
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in BENCH_KERNELS.items()}
+    for ln in err.strip().splitlines():
+        print(f"[12] stderr: {ln}")
+    B = FLAG_B
+    problems = []
+    if not (out["n_solved"] == out["batch"] == B and out["amortized_n_solved"] == B):
+        problems.append(f"flagship n_solved {out['n_solved']} / amortized "
+                        f"{out['amortized_n_solved']} of batch {out['batch']}")
+    if "float32" not in out["metric"]:
+        problems.append(f"metric {out['metric']!r}: the f64 accuracy fallback was taken")
+    for k in BENCH_SUBMETRICS:
+        st = (out.get(k) or {}).get("status")
+        if st != "solved":
+            problems.append(f"{k} status {st!r}")
+    if (out.get("hi_acc") or {}).get("n_certified") != HI_B:
+        problems.append(f"hi_acc n_certified {(out.get('hi_acc') or {}).get('n_certified')}")
+    if (out.get("mixed_cone") or {}).get("obj_3_decimal_parity") is not True:
+        problems.append("mixed_cone obj_3_decimal_parity is not true")
+    idle = [k for k, v in launches.items() if v <= 0]
+    if idle:
+        problems.append(f"kernels never launched by the bench: {idle}")
+    if problems:
+        raise AssertionError("phase 12: " + "; ".join(problems))
+    sub = {k: out[k] for k in BENCH_SUBMETRICS}
+    print(f"[12] bench (python -m scs_tpu_torch.bench_cli, defaults) on {name_and_limit}: "
+          f"wall {wall:.1f} s; {out['metric']}: value {out['value']} {out['unit']}, "
+          f"vs_baseline {out['vs_baseline']}, amortized {out['amortized_secs']} s, "
+          f"e2e cold {out['e2e_cold_secs']} s (setup {out['setup_secs']} s + first solve "
+          f"{out['first_solve_secs']} s), solve {out['solve_secs']} s ({out['solve_pps']} pps), "
+          f"n_solved {out['n_solved']}/{out['batch']}, chunks {out['chunks']}, iterations mean "
+          f"{out['mean_iters']} max {out['max_iters_seen']}, lockstep {out['lockstep_efficiency']}, "
+          f"achieved {out['achieved_hbm_gbps']} GB/s ({out['hbm_utilization']}), device "
+          f"{out['device_hbm_gbps']} GB/s ({out['device_hbm_utilization']}); setup_breakdown "
+          f"{out['setup_breakdown']}")
+    print(f"[12] sub-metrics: {json.dumps(sub)}")
+    print(f"[12] bench kernel launches: {launches}; proj_box {cone_ops._proj_box.launches} "
+          f"(no box cone on the bench's path)")
+
+    bell, err, wall_b = _run_bench({"BENCH_DEVICE": "cuda", "BENCH_BELL": "1"})
+    if bell["status"] != "solved" or not bell["cross_check_obj_gap"] < 1e-3:
+        raise AssertionError(f"phase 12 BENCH_BELL=1: {bell}")
+    print(f"[12] BENCH_BELL=1: wall {wall_b:.1f} s; {bell['metric']}: {bell['status']} in "
+          f"{bell['iters']} iterations, solve {bell['solve_secs']} s, setup {bell['setup_secs']} s, "
+          f"cross_check_obj_gap {bell['cross_check_obj_gap']:.3e}, vs_baseline "
+          f"{bell['vs_baseline']}")
+    return launches
+
+
+def _instrumented_gates(label, info, path):
+    """Phase 13's gates on one instrumented solve: solved, one CSV row per
+    iteration with iter stepping by 1, measured timers under solve_time."""
+
+    with open(path) as f:
+        iters = [int(r["iter"]) for r in csv.DictReader(f)]
+    total = info["lin_sys_time"] + info["cone_time"] + info["accel_time"]
+    if info["status"] != "solved":
+        raise AssertionError(f"[13] {label}: status {info['status']!r}")
+    if iters != list(range(1, info["iter"] + 1)):
+        raise AssertionError(f"[13] {label}: {len(iters)} CSV rows for {info['iter']} iterations")
+    if not (info["lin_sys_time"] > 0 and info["cone_time"] > 0 and total < info["solve_time"]):
+        raise AssertionError(f"[13] {label}: timers lin {info['lin_sys_time']}, cone "
+                             f"{info['cone_time']}, accel {info['accel_time']}, solve "
+                             f"{info['solve_time']}")
+    return total
+
+
+def phase_instrumented(name_and_limit):
+    """Phase 13: phase_timing="always" on the card — the instrumented loop
+    on phase 7's dense QP and phase 5's bell QP, the batched timers on the
+    mixed_cone cell, and the auto/instrumented ratio of the timers."""
+
+    dense, _ = gen_dense_qp(DENSE_QP_M, DENSE_QP_N)
+    cases = (
+        ("dense QP 300x200 f64 direct", dense, DENSE_QP_M, DENSE_QP_EPS,
+         dict(solver_strategy="direct")),
+        ("bell QP 3000x2000 f64", gen_bell_qp(QP_M, QP_N, 0.02), QP_M, QP_EPS,
+         dict(solver_strategy="bell")),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, data, m, eps, kw in cases:
+            kw = dict(kw, dtype="float64", eps_abs=eps, eps_rel=eps, max_iters=20000,
+                      verbose=False, device="cuda")
+            path = os.path.join(tmp, "trace.csv")
+            info = scs_tpu_torch.solve(data, {"l": m}, phase_timing="always",
+                                       log_csv_filename=path, **kw)["info"]
+            total = _instrumented_gates(label, info, path)
+            auto = scs_tpu_torch.solve(data, {"l": m}, **kw)["info"]
+            print(f"[13] {label} eps {eps:g}, phase_timing='always' on {name_and_limit}: "
+                  f"{info['status']} in {info['iter']} iterations, {info['iter']} CSV rows; "
+                  f"lin_sys {info['lin_sys_time']:.4f} s, cone {info['cone_time']:.4f} s, accel "
+                  f"{info['accel_time']:.4f} s = {total / info['solve_time']:.3f} of solve "
+                  f"{info['solve_time']:.3f} s; {1e3 * info['solve_time'] / info['iter']:.3f} ms "
+                  f"an iteration instrumented against {1e3 * auto['solve_time'] / auto['iter']:.3f} "
+                  f"pipelined ({auto['status']} in {auto['iter']} iterations)")
+
+    K = mixed_cone.MIXED_K
+    data, _ = mixed_cone.gen_mixed_batch(K, mixed_cone.MIXED_B, mixed_cone.MIXED_SEED)
+    kw = dict(dtype="float32", eps_abs=mixed_cone.MIXED_EPS, eps_rel=mixed_cone.MIXED_EPS,
+              max_iters=20000, scale=1.0, device="cuda")
+    res_a = scs_tpu_torch.BatchedSCS(data, K, **kw).solve()
+    solver = scs_tpu_torch.BatchedSCS(data, K, phase_timing="always", **kw)
+    t0 = time.perf_counter()
+    res = solver.solve()
+    wall = time.perf_counter() - t0
+    pt = solver.phase_times()
+    it_a = [r["info"]["iter"] for r in res_a]
+    it_w = [r["info"]["iter"] for r in res]
+    if it_a != it_w:
+        raise AssertionError(f"[13] mixed_cone 'always' iterations differ from 'auto': "
+                             f"{sum(a != w for a, w in zip(it_a, it_w))} problems")
+    if any(r["info"]["status"] != "solved" or not (r["info"]["lin_sys_time"] > 0
+           and r["info"]["cone_time"] > 0 and r["info"]["accel_time"] > 0) for r in res):
+        raise AssertionError("[13] mixed_cone 'always': a problem unsolved or with empty timers")
+    B = len(res)
+    print(f"[13] mixed_cone {B} problems, phase_timing='always': {B}/{B} solved with the "
+          f"iteration counts of 'auto' (mean {np.mean(it_w):.1f}, max {max(it_w)}); phase_times "
+          f"per batched call lin_sys {1e3 * pt['lin_sys']:.3f} ms, cone {1e3 * pt['cone']:.3f} ms, "
+          f"accel_trial {1e3 * pt['accel_trial']:.3f} ms; solve {wall:.2f} s incl. phase_times; "
+          f"summed per-problem timers {sum(r['info']['lin_sys_time'] + r['info']['cone_time'] + r['info']['accel_time'] for r in res):.3f} s")
+
+    # tests/test_observability.py:159's QP (900 x 600, default dtype: f32 on
+    # the card, eps 1e-5, so the high-accuracy mode): per-iteration lin_sys +
+    # cone from the "auto" estimate against the instrumented measurement
+    rng = np.random.RandomState(11)
+    m, n = 900, 600
+    A = rng.randn(m, n) / np.sqrt(m)
+    G = rng.randn(n, n // 8)
+    P = 0.1 / (n // 8) * (G @ G.T) + 1e-4 * np.eye(n)
+    x = rng.randn(n)
+    z = rng.randn(m)
+    y = np.maximum(z, 0)
+    data = {"A": sparse.csc_matrix(A), "b": A @ x + (y - z), "c": -A.T @ y - P @ x,
+            "P": sparse.csc_matrix(np.triu(P))}
+    kw = dict(eps_abs=1e-5, eps_rel=1e-5, verbose=False, max_iters=20000, time_limit_secs=60,
+              device="cuda")
+    inst = scs_tpu_torch.SCS(data, {"l": m}, phase_timing="always", **kw).solve()["info"]
+    auto = scs_tpu_torch.SCS(data, {"l": m}, phase_timing="auto", **kw).solve()["info"]
+    r_i = (inst["lin_sys_time"] + inst["cone_time"]) / max(inst["iter"], 1)
+    r_a = (auto["lin_sys_time"] + auto["cone_time"]) / max(auto["iter"], 1)
+    print(f"[13] QP 900x600 (tests/test_observability.py:159) f32 eps 1e-5 on {name_and_limit}: "
+          f"instrumented {inst['status']} in {inst['iter']} it, {1e3 * r_i:.4f} ms lin_sys + cone "
+          f"an iteration ({1e3 * inst['solve_time'] / max(inst['iter'], 1):.3f} ms of wall); auto "
+          f"{auto['status']} in {auto['iter']} it, {1e3 * r_a:.4f} ms estimated "
+          f"({1e3 * auto['solve_time'] / max(auto['iter'], 1):.3f} ms of wall); auto/instrumented "
+          f"{r_a / r_i if r_i > 0 else float('nan'):.3f} (not gated)")
+
+
 def main():
+    t_start = time.perf_counter()
     name, name_and_limit = phase_device()
     if sys.argv[1:] == ["--bell-profile"]:
         phase_build()
@@ -1367,6 +1529,8 @@ def main():
     cone_launches_9 = phase_mixed_cone()
     cone_launches_10 = phase_mixed_wide()
     d1_cell = phase_hi_acc()
+    bench_launches = phase_bench(name_and_limit)
+    phase_instrumented(name_and_limit)
 
     f32 = torch.float32
     spmv_src = "scs_tpu_torch/ops/csrc/bell_spmv.cu"
@@ -1385,7 +1549,7 @@ def main():
     k3 = times_b[("bench A", f32)]
     # the block-ELL product has no single library call; its plain version
     # (one gather and one einsum, run as a library batched product) stands in
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("bell_spmv", spmv_src, "scs_tpu/ops/sparse.py:79", launches, max_err,
               k1[0], k1[1], _spmv_bound(*shapes["bench A"], f32), k1[1],
               shape="bench A pack"),
@@ -1446,7 +1610,12 @@ def main():
             )
             for rec in (d1_recs[("hi_acc A", w)],)
         ),
-    ]}))
+    ]
+    # each kernel's launches in phase 12's bench run (this slice's path)
+    for k in kernels:
+        k["launches_bench"] = bench_launches.get(k["name"].split(" (")[0], 0)
+    print(f"[end] whole run {time.perf_counter() - t_start:.1f} s of wall on {name_and_limit}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

@@ -15,9 +15,12 @@ and batches (BatchedSCS, solve_batch), under the dense strategies
 "direct" (Cholesky factor or precomputed inverse) and "indirect" (CG),
 whose matvecs run through the batched GEMV kernels (ops/dense.py), a batch
 being a dense (B, m, n) array, and the "bell" strategy (block-ELL
-matrix-free CG), a batch being a list of sparse matrices. Not yet ported
-(ROADMAP.md): high accuracy (hi_acc, polish), the instrumented loop
-(phase_timing="always"), ShardedSCS and the bench CLI. The package never
+matrix-free CG), a batch being a list of sparse matrices; the f32
+high-accuracy mode (compensated products, ops/df32.py) and the batched
+polish (BatchedSCS.polish); the per-phase timers, measured with
+phase_timing="always" (the instrumented loop; BatchedSCS.phase_times); and
+the bench, `python -m scs_tpu_torch.bench_cli`. Not yet ported
+(ROADMAP.md): ShardedSCS and the rest of scs_tpu.parallel. The package never
 imports JAX; scs_tpu stays the reference it is tested against.
 """
 

@@ -6,9 +6,12 @@ extraction), the same solve()/update() signatures and the same info dict.
 
 All three strategies run: "direct" (dense Cholesky, or the precomputed
 inverse with direct_solver="inverse"), "indirect" (matrix-free CG on dense
-A) and "bell" (block-ELL matrix-free CG). What still raises
-NotImplementedError, naming its ROADMAP.md item: phase_timing="always", and
-float32 below eps 3e-5 on the dense path (scs_tpu's compensated hi_acc mode).
+A) and "bell" (block-ELL matrix-free CG); float32 below eps 3e-5 on a dense
+strategy is the compensated high-accuracy mode (Core.hi_acc). Two loops
+drive a solve: the chunked loop (one check every check_interval
+iterations), and with phase_timing="always" the instrumented loop (each
+phase of every iteration timed to a device synchronize, one check, CSV row
+and verbose line per iteration).
 """
 
 from __future__ import annotations
@@ -202,12 +205,10 @@ class SCS:
                 f"Total cone dimension {spec.dim} does not match length of b ({m})"
             )
         self.stg.solver_strategy = strategy
+        # Instrumented mode: real per-phase timers and one CSV row / verbose
+        # line per iteration need a check after every iteration
         if self.stg.phase_timing == "always":
-            raise NotImplementedError(
-                "phase_timing='always' (the per-iteration instrumented loop)"
-                " is not ported to scs_tpu_torch yet: ROADMAP.md Queue 1 "
-                "item 6 follow-up"
-            )
+            self.stg.check_interval = 1
 
         self.spec = spec
         self.m, self.n = m, n
@@ -294,6 +295,7 @@ class SCS:
         self._setup_time = time.perf_counter() - t0
         self._warm = None  # (u, v, scale) from the previous solve
         self._last_state = None
+        self._measured_phases = None  # (lin, cone, accel) s of an instrumented solve
         # Per-instance lock serializing solve/update on a shared instance —
         # the counterpart of the reference's PyThread_type_lock discipline
         # (scs/scsobject.h:12, 939-955).
@@ -410,9 +412,13 @@ class SCS:
                 "1.0.0",
             )
 
+        self._measured_phases = None
         self._last_state = state
         try:
-            state = self._pipelined_loop(state, core, mats, stg, csv, verbose, t0)
+            if stg.phase_timing == "always":
+                state = self._instrumented_loop(state, core, mats, stg, csv, verbose, t0)
+            else:
+                state = self._pipelined_loop(state, core, mats, stg, csv, verbose, t0)
         except KeyboardInterrupt:
             interrupted = True
             state = self._last_state
@@ -437,16 +443,60 @@ class SCS:
             done = state.status != info_mod.UNFINISHED or state.it >= stg.max_iters
             el = time.perf_counter() - t0
             if verbose or csv is not None:
-                p = self._probe_values(state)  # ONE device read per chunk
-                if verbose:
-                    print_iter_line(
-                        int(p[0]), float(p[2]), float(p[3]), float(p[4]),
-                        float(p[5]), float(p[7]), el,
-                    )
-                if csv is not None:
-                    self._write_csv_row(csv, p, el)
+                # ONE device read per chunk
+                self._log_check(self._probe_values(state), el, verbose, csv)
             if done or (stg.time_limit_secs and el > stg.time_limit_secs):
                 return state
+
+    def _instrumented_loop(self, state, core, mats, stg, csv, verbose, t0):
+        """Per-iteration split-phase loop (phase_timing="always"): the
+        linear step, the cone step and the iteration tail (AA bookkeeping
+        and trial) each run and are timed to a device synchronize, so
+        lin_sys/cone/accel times are real accumulated wall-clock (the
+        reference's in-loop timers, scsobject.h:1088-1092); accel time
+        counts only iterations whose tail runs the AA trial. One check, one
+        probe, one CSV row and one verbose line per iteration."""
+        pc = time.perf_counter
+        t_lin = t_cone = t_accel = 0.0
+        trialing = core.lookback > 0
+        while True:
+            self._last_state = state
+            ts = pc()
+            lin = core._step_lin(state, mats)
+            core._sync()
+            t_lin += pc() - ts
+
+            ts = pc()
+            st1 = core._step_cone(state, *lin, mats)
+            core._sync()
+            t_cone += pc() - ts
+
+            is_trial = trialing and (state.it + 1) % core.interval == 0
+            ts = pc()
+            state = core._iter_tail(state, st1, mats)
+            core._sync()
+            if is_trial:
+                t_accel += pc() - ts
+
+            state = core._check(state, mats)
+            p = self._probe_values(state)  # ONE device read
+            el = pc() - t0
+            done = int(p[1]) != info_mod.UNFINISHED or int(p[0]) >= stg.max_iters
+            self._log_check(p, el, verbose, csv)
+            if done or (stg.time_limit_secs and el > stg.time_limit_secs):
+                break
+        self._measured_phases = (t_lin, t_cone, t_accel)
+        return state
+
+    def _log_check(self, p, elapsed, verbose, csv):
+        """The verbose line and the CSV row of one check, from its probe."""
+        if verbose:
+            print_iter_line(
+                int(p[0]), float(p[2]), float(p[3]), float(p[4]),
+                float(p[5]), float(p[7]), elapsed,
+            )
+        if csv is not None:
+            self._write_csv_row(csv, p, elapsed)
 
     def _probe_values(self, state):
         """Every host-consumed scalar of one check, in one device read
@@ -575,11 +625,14 @@ class SCS:
         if core.lookback == 0:
             aa_stats = info_mod.default_aa_stats()
 
-        # per-phase timing: an estimate from timed phase calls x the
-        # realized phase counts (Core.phase_times)
+        # per-phase timing. phase_timing="always" ran the instrumented
+        # loop: real accumulated per-phase wall-clock. "auto" estimates from
+        # timed phase calls x the realized phase counts (Core.phase_times).
         lin_sys_time = cone_time = accel_time = 0.0
         stg = self.stg
-        if stg.phase_timing == "auto" and (stg.verbose or solve_time > 0.3):
+        if self._measured_phases is not None:
+            lin_sys_time, cone_time, accel_time = self._measured_phases
+        elif stg.phase_timing == "auto" and (stg.verbose or solve_time > 0.3):
             pt = core.phase_times([self._state0, state], mats)
             # each iteration does one linear projection + one cone
             # projection; each AA trial adds a candidate solve + safeguard

@@ -36,7 +36,7 @@ from .batch_core import BatchedCore
 from .cones import ConeSpec
 from .info import UNFINISHED
 from .settings import Settings
-from .solver import BellData, Mats, PBell
+from .solver import BellData, Mats, PBell, mean_call_time
 
 
 def batch_memory_bytes(B, m, n, has_P, itemsize=4, lookback=10):
@@ -152,12 +152,6 @@ class BatchedSCS:
             A = _stack_dense(A)
         if isinstance(P, (list, tuple)) and self.stg.solver_strategy != "bell":
             P = _stack_dense(P)
-        if self.stg.phase_timing == "always":
-            raise NotImplementedError(
-                "phase_timing='always' (the per-phase instrumented timers) "
-                "is not ported to scs_tpu_torch yet: ROADMAP.md Queue 1 "
-                "item 6 follow-up"
-            )
         spec = ConeSpec.from_dict(cone)
         if spec.dim != m:
             raise ValueError("cone dimensions incompatible with b")
@@ -210,6 +204,7 @@ class BatchedSCS:
             "factorize": t_fact,
             "compute_g": t_g,
         }
+        self._phase_cache = None
 
     def _own(self, a, shape):
         """The solver's own tensor of `a` on its device in its dtype: always
@@ -350,6 +345,35 @@ class BatchedSCS:
         self._states = self.core.init_state(self.mats, L=self._L)
         self.core._sync()
 
+    def phase_times(self):
+        """Measured time of each phase for the WHOLE batch, in seconds per
+        batched call: the linear step, the cone step and the AA trial (the
+        iteration tail of a state doctored so the trial fires) at the
+        batch's true shape, each one warm call and then the mean of 5, each
+        call ended by a device synchronize. Multiply by the iteration count
+        for a per-phase breakdown — the batched analogue of the reference's
+        lin_sys/cone/accel timers (scs/scsobject.h:1088-1092). Cached."""
+        if self._phase_cache is not None:
+            return self._phase_cache
+        if self._states is None:
+            self.reset()
+        core = self.core
+
+        def time5(call):
+            return mean_call_time(call, core._sync)
+
+        st, mats = self._states, self.mats
+        lin_out = core._step_lin(st, mats)
+        t_lin = time5(lambda: core._step_lin(st, mats))
+        t_cone = time5(lambda: core._step_cone(st, *lin_out, mats))
+        t_accel = 0.0
+        if core.lookback > 0:
+            std = core._doctored_trial_state(st)
+            st1 = core._step_cone(std, *core._step_lin(std, mats), mats)
+            t_accel = time5(lambda: core._iter_tail(std, st1, mats))
+        self._phase_cache = {"lin_sys": t_lin, "cone": t_cone, "accel_trial": t_accel}
+        return self._phase_cache
+
     def update(self, b=None, c=None):
         """Update b and/or c for the whole batch, re-scaled with the stored
         equilibration; the factor (or the packs) is reused and only g is
@@ -385,7 +409,9 @@ class BatchedSCS:
         x, y, s, x_cert, y_cert, s_cert, scal = (
             a.detach().cpu().numpy() for a in pack
         )
+        timers = self.phase_times() if self.stg.phase_timing == "always" else None
         lookback = self.core.lookback
+        interval = max(self.core.interval, 1)
         for i in range(len(positions)):
             if mask is not None and not mask[i]:
                 continue
@@ -432,6 +458,16 @@ class BatchedSCS:
                 + aa_stats["n_reject_nonfinite"]
                 + aa_stats["n_reject_weight_cap"]
             )
+            kw = {}
+            if timers is not None:
+                # the timers are per batched call at the initial size; the
+                # per-problem share scales by 1/B
+                aa_trials = it // interval if lookback > 0 else 0
+                kw = dict(
+                    lin_sys_time=timers["lin_sys"] * it / self.B,
+                    cone_time=timers["cone"] * it / self.B,
+                    accel_time=timers["accel_trial"] * aa_trials / self.B,
+                )
             info = info_mod.make_info(
                 st,
                 it,
@@ -451,6 +487,7 @@ class BatchedSCS:
                 accepted_accel_steps=aa_stats["n_accept"],
                 rejected_accel_steps=rejected,
                 aa_stats=aa_stats,
+                **kw,
             )
             results[pos] = {"x": xi.copy(), "y": yi.copy(), "s": si.copy(), "info": info}
 

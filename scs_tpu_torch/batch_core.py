@@ -847,6 +847,15 @@ class BatchedCore:
             state = self.masked_chunk(state, mats, max_iters)
         return state
 
+    # -- per-phase timing -----------------------------------------------------
+
+    def _doctored_trial_state(self, state: State):
+        """State altered so _iter_tail fires the AA trial in every row."""
+        return state._replace(
+            it=torch.full_like(state.it, max(self.interval - 1, 0)),
+            aa=state.aa._replace(count=torch.full_like(state.aa.count, 2)),
+        )
+
     # -- finalization ---------------------------------------------------------
 
     def _finalize(self, state: State, mats: Mats):

@@ -126,8 +126,9 @@ class Settings:
     host_poll_chunks: int = 8
     # Per-phase timing (info dict lin_sys_time/cone_time/accel_time).
     # "auto": estimate (timed phase calls x phase counts) when the solve
-    #   is verbose or longer than 0.3 s; "off": never measure; "always"
-    #   (the per-iteration instrumented loop) is not ported yet and raises.
+    #   is verbose or longer than 0.3 s; "off": never measure; "always":
+    #   measured (SCS runs the per-iteration instrumented loop with
+    #   check_interval 1; BatchedSCS scales BatchedSCS.phase_times()).
     phase_timing: str = "auto"
     # AA safeguarding: accept a candidate if its fixed-point residual is at
     # most aa_safeguard_factor x the current one; optionally clear the AA

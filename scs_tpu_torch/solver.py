@@ -70,6 +70,18 @@ def _norm(x):
     return torch.linalg.vector_norm(x)
 
 
+def mean_call_time(call, sync, reps=5):
+    """One warm call, then the mean wall time of `reps` calls, each ended
+    by sync() (a device synchronize on CUDA)."""
+    call()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+        sync()
+    return (time.perf_counter() - t0) / reps
+
+
 class BellData(NamedTuple):
     """Block-ELL operator data: A and the pre-transposed A^T packed into
     dense (bs x bs) tiles; colsq_* feed the Jacobi preconditioner without
@@ -1141,14 +1153,7 @@ class Core:
             states = [states]
 
         def time5(call):
-            call()
-            self._sync()
-            reps = 5
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                call()
-                self._sync()
-            return (time.perf_counter() - t0) / reps
+            return mean_call_time(call, self._sync)
 
         t_lin = t_cone = t_accel = 0.0
         for st in states:

@@ -29,6 +29,7 @@ the full tolerances above apply. The zero-cone LP is too chaotic for
 either comparison and is checked by its KKT residuals alone.
 """
 
+import contextlib
 import importlib.util
 import os
 import subprocess
@@ -42,6 +43,7 @@ from scipy import sparse
 import scs_tpu
 import scs_tpu_torch
 from scs_tpu.bench_cli import gen_bell_lp
+from scs_tpu_torch import bench_cli as torch_bench_cli
 
 # the port's entry points run on the card unless told otherwise
 CPU = dict(device="cpu")
@@ -245,7 +247,9 @@ def test_certificates_match_scs_tpu(make, status):
 
 def test_chip_smoke_generator_matches_bench_cli():
     chip_smoke = _load_chip_smoke()
-    a, b = chip_smoke.gen_bell_lp(700, 500, 0.02, bs=32), gen_bell_lp(700, 500, 0.02, bs=32)
+    assert chip_smoke.gen_bell_lp is torch_bench_cli.gen_bell_lp
+    a = torch_bench_cli.gen_bell_lp(700, 500, 0.02, bs=32)
+    b = gen_bell_lp(700, 500, 0.02, bs=32)
     assert (a["A"] != b["A"]).nnz == 0
     np.testing.assert_array_equal(a["b"], b["b"])
     np.testing.assert_array_equal(a["c"], b["c"])
@@ -276,9 +280,16 @@ def test_full_bell_solve_never_imports_jax():
     ({"phase_timing": "always"}, "instrumented"),  # AUTO: direct
 ])
 def test_unported_strategies_raise(kw, match):
+    """These raised NotImplementedError naming the `match`ed loop until the
+    instrumented loop was ported; now they build as scs_tpu builds them
+    (check_interval 1) and solve to its status."""
     data, cone = _sparse_lp(60, 45, 0)
-    with pytest.raises(NotImplementedError, match=match):
-        scs_tpu_torch.SCS(data, cone, verbose=False, **kw, **CPU)
+    kw = dict(kw, bell_block_size=16, max_iters=300)
+    st = scs_tpu_torch.SCS(data, cone, verbose=False, **kw, **CPU)
+    sj = scs_tpu.SCS(data, cone, verbose=False, **kw)
+    assert st.stg.check_interval == sj.stg.check_interval == 1
+    assert st.stg.solver_strategy == sj.stg.solver_strategy
+    assert st.solve()["info"]["status"] == sj.solve()["info"]["status"]
 
 
 @pytest.mark.parametrize("kw", [
@@ -483,7 +494,7 @@ def test_validation_matches_scs_tpu():
         with pytest.raises(TypeError, match="sparse"):
             pkg.SCS(dict(data, A=data["A"].toarray()), cone, solver_strategy="bell", **dev)
     with pytest.raises(ValueError, match="no CUDA device") if not torch.cuda.is_available() \
-            else pytest.raises(NotImplementedError):
+            else contextlib.nullcontext():
         scs_tpu_torch.SCS(data, cone, solver_strategy="bell", device="cuda",
                           phase_timing="always")
 

@@ -30,6 +30,7 @@ import scs_tpu.batch as jb
 import scs_tpu_torch as st
 from scs_tpu import bench_cli
 from scs_tpu_torch import batch as tb
+from scs_tpu_torch import bench_cli as torch_bench_cli
 from scs_tpu_torch import batch_core
 from scs_tpu_torch.convert import batch_state_from_numpy, mats_from_numpy
 from scs_tpu_torch.solver import AAState, Core, Diag, Mats, State
@@ -475,9 +476,17 @@ def test_dense_input_under_bell_raises_same_valueerror():
     (dict(solver_strategy="auto", phase_timing="always"), "item 6"),  # auto: direct
 ])
 def test_unported_strategies_raise(kw, item):
+    """These raised NotImplementedError naming ROADMAP.md Queue 1 `item`
+    until the batched phase timers were ported; now the batch solves and
+    every problem's timers are filled from phase_times()."""
     data, _ = _gen_sparse_batch(2, M, N, seed=1)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        st.BatchedSCS(data, {"l": M}, verbose=False, **kw, **CPU)
+    solver = st.BatchedSCS(data, {"l": M}, verbose=False, bell_block_size=32, **kw, **CPU)
+    res = solver.solve()
+    pt = solver.phase_times()
+    for r in res:
+        assert r["info"]["status"] == "solved"
+        assert r["info"]["lin_sys_time"] == pytest.approx(pt["lin_sys"] * r["info"]["iter"] / 2)
+        assert r["info"]["cone_time"] > 0
 
 
 def test_hi_acc_batch_resolves_and_solves():
@@ -524,7 +533,8 @@ def test_chip_smoke_batch_generator_matches_bench_cli(monkeypatch):
     with pytest.raises(Stop):
         bench_cli._bell_batch_submetric(B=3, m=700, n=500, density=0.01, width=6)
     ref = captured["data"]
-    ours = _load_chip_smoke().gen_bell_batch(3, 700, 500, 0.01, width=6, seed=11)
+    assert _load_chip_smoke().gen_bell_batch is torch_bench_cli.gen_bell_batch
+    ours = torch_bench_cli.gen_bell_batch(3, 700, 500, 0.01, width=6, seed=11)
     assert captured["cone"] == {"l": 700}
     for a, b in zip(ours["A"], ref["A"]):
         assert (a != b).nnz == 0 and a.shape == b.shape
