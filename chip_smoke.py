@@ -33,7 +33,9 @@ Phases, one line each; any failure raises and exits nonzero:
      at 10^6 cones; the box at (1, 1001) and (512, 1001) under shared and
      per-row bounds with infinities; agreement to a stated tolerance, a
      bit-equal repeat, and the geometry of the answer in f64 on the host: p
-     in K, p - v in K*, <p, p - v> = 0); and every projection left as plain
+     in K, p - v in K*, <p, p - v> = 0; the same checks run after phase 10
+     on the rows phases 9 and 10 handed proj_exp and proj_box early, in the
+     middle and late in their solves); and every projection left as plain
      tensor code on the card against the CPU in f64, with the library's
      batched eigh timed per shape;
   4. the main path: SCS(...).solve() under solver_strategy="bell" on the
@@ -78,7 +80,10 @@ Phases, one line each; any failure raises and exits nonzero:
      51,200 exp/power cones and 512 matrices per projection), generated in
      worker processes; the same gates; then a
      torch.profiler window over two chunks (kernels per iteration, busy and
-     idle share, the shares of eigh, of the cone kernels, of the GEMVs);
+     idle share, the shares of eigh, of the cone kernels, of the GEMVs).
+     Phases 9 and 10 each solve their batch once untimed before the timed
+     solve, copying the rows the exp and box kernels are handed (phase 3's
+     checks run on them after phase 10);
  11. the scs_tpu bench's `hi_acc` cell at its full size: 32 dense QPs of
      1500 x 1000 from its generator (scs_tpu/bench_cli.py:gen_batch, seed
      4321, planted optima p*), A and P in f32: (a) BatchedSCS at eps 1e-4,
@@ -1010,6 +1015,25 @@ def phase_kernels_cones():
     return report, eigh_ms
 
 
+def phase_kernels_captured(*captures):
+    """Phase 3's checks of proj_exp and proj_box (check_cone_kernels: the
+    stated tolerance, a bit-equal repeat, the f64 geometry), on the rows
+    phases 9 and 10 handed them early, in the middle and late in their
+    solves; run after phase 10, which captures them."""
+    exp_in, box_in = [], []
+    for tag, cap in captures:
+        e, b = cap.inputs(tag)
+        exp_in += e
+        box_in += b
+    t0 = time.perf_counter()
+    mixed_cone.check_cone_kernels(
+        HBM_BYTES_PER_S, PEAK_FLOPS, exp_sizes=(), pow_sizes=(), box_cases=(),
+        exp_inputs=exp_in, box_inputs=box_in, geometry_rows=700, plain_reps=1,
+    )
+    print(f"[3] the captured rows: {len(exp_in)} exponential and {len(box_in)} box cases, f32 and "
+          f"f64, checked in {time.perf_counter() - t0:.1f} s")
+
+
 def _mixed_gates(label, K, data, p_star, solver, res, pool=None, A_rows=None):
     """The gates of a mixed-cone batch: all solved, objectives against the
     planted ones, host f64 residuals and cone membership, the projections
@@ -1067,8 +1091,10 @@ def _time_phases(solver, reps=5):
 
 def _solve_mixed(label, K, data):
     """Set up and solve one mixed-cone batch on the card; the launch counts
-    are zeroed just before the solve. Returns (solver, results, setup s,
-    solve s, per-phase ms)."""
+    are zeroed just before the timed solve. A solve before it, untimed,
+    copies the rows of every 50th call of proj_exp and proj_box
+    (mixed_cone.CaptureRows, for phase 3's checks on them). Returns
+    (solver, results, setup s, solve s, per-phase ms, capture)."""
     t0 = time.perf_counter()
     solver = scs_tpu_torch.BatchedSCS(
         data, K, dtype="float32", eps_abs=mixed_cone.MIXED_EPS, eps_rel=mixed_cone.MIXED_EPS,
@@ -1078,11 +1104,14 @@ def _solve_mixed(label, K, data):
     setup = time.perf_counter() - t0
     phases = _time_phases(solver)
     solver.reset()
+    with mixed_cone.CaptureRows() as cap:
+        solver.solve()
+    solver.reset()
     _zero_counts(*CONE_KERNELS, gemv_rows, gemv_cols, bell_spmv, bell_spmv_batched)
     t0 = time.perf_counter()
     res = solver.solve()
     torch.cuda.synchronize()
-    return solver, res, setup, time.perf_counter() - t0, phases
+    return solver, res, setup, time.perf_counter() - t0, phases, cap
 
 
 def _mixed_report(tag, label, solver, res, p_star, setup, solve, phases, worst, extra=""):
@@ -1138,7 +1167,7 @@ def phase_mixed_cone():
     """The scs_tpu bench's mixed_cone cell at its full size."""
     K = mixed_cone.MIXED_K
     data, p_star = mixed_cone.gen_mixed_batch(K, mixed_cone.MIXED_B, mixed_cone.MIXED_SEED)
-    solver, res, setup, solve, phases = _solve_mixed("mixed_cone", K, data)
+    solver, res, setup, solve, phases, cap = _solve_mixed("mixed_cone", K, data)
     worst = _mixed_gates("mixed_cone", K, data, p_star, solver, res)
     B, m, n = data["A"].shape
     launches = _mixed_report(
@@ -1147,7 +1176,7 @@ def phase_mixed_cone():
               f"{MIXED_TPU_ITERS[1]})",
     )
     _profile_report(9, solver)
-    return launches
+    return launches, cap
 
 
 def phase_mixed_wide():
@@ -1179,13 +1208,13 @@ def _mixed_wide(K, pool):
         f"in f32, {B * n_exp} exponential and {B * n_pow} power cones, {B * len(K['s'])} "
         f"matrices of {K['s'][0]} x {K['s'][0]} and {B} boxes of {len(K['bu'])} bounds per projection"
     )
-    solver, res, setup, solve, phases = _solve_mixed("mixed_cone_wide", K, data)
+    solver, res, setup, solve, phases, cap = _solve_mixed("mixed_cone_wide", K, data)
     worst = _mixed_gates("mixed_cone_wide", K, data, p_star, solver, res, pool, A_rows)
     launches = _mixed_report(
         10, f"mixed_cone_wide {B} x {m}x{n}", solver, res, p_star, setup, solve, phases, worst
     )
     _profile_report(10, solver)
-    return launches
+    return launches, cap
 
 
 def _hi_kkt(A, P, b, c, res, tol):
@@ -1526,8 +1555,9 @@ def main():
     phase_dense_single()
     d1_single = phase_hi_acc_single()
     launches_g1, launches_g2 = phase_flagship()
-    cone_launches_9 = phase_mixed_cone()
-    cone_launches_10 = phase_mixed_wide()
+    cone_launches_9, cap_9 = phase_mixed_cone()
+    cone_launches_10, cap_10 = phase_mixed_wide()
+    phase_kernels_captured(("mixed_cone", cap_9), ("mixed_cone_wide", cap_10))
     d1_cell = phase_hi_acc()
     bench_launches = phase_bench(name_and_limit)
     phase_instrumented(name_and_limit)
@@ -1580,8 +1610,12 @@ def main():
                   cone_report[kname]["plain_ms"],
                   (cone_report[kname]["bound_ms"], cone_report[kname]["bound_by"]), None,
                   shape=cone_report[kname]["shape"] + " f32", launches_mixed_cone=n9,
+                  bound_steps_ms=cone_report[kname]["bound_steps_ms"],
                   note="launches: the wide mixed-cone batch's solve (launches_mixed_cone: the "
-                       "mixed_cone cell's). No Pallas kernel existed: XLA fused this fori_loop "
+                       "mixed_cone cell's). bound_ms: the plain algorithm's passes (proj_exp: "
+                       "its solves at 40 Newton steps each); bound_steps_ms: the Newton steps "
+                       "the kernel ran, its exits taken. No Pallas kernel existed: XLA fused "
+                       "this fori_loop "
                        "into the solver's program; in eager PyTorch it would be one launch per "
                        "arithmetic line of every loop pass. No single PyTorch call computes it.")
             for kname, replaces, n9, n10 in zip(

@@ -56,15 +56,17 @@ _SYMBOLS = {
         "gemv_cols_comp_f32": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     },
     "cone_proj": {
-        # (v, sign or null, out, evals or null, k, explim, stream)
-        "proj_exp_f32": [_VP, _VP, _VP, _VP, _I, _D, _VP],
-        "proj_exp_f64": [_VP, _VP, _VP, _VP, _I, _D, _VP],
+        # (v, sign or null, out, evals, steps, cycles (each or null), k, group,
+        #  explim, stream)
+        "proj_exp_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _VP],
+        "proj_exp_f64": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _VP],
         # (v, a, sign or null, out, iters or null, k, stream)
         "proj_pow_f32": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
         "proj_pow_f64": [_VP, _VP, _VP, _VP, _VP, _I, _VP],
-        # (v, bl, bu, out, iters or null, batch, nb, bound_stride, stream)
-        "proj_box_f32": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-        "proj_box_f64": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+        # (v, bl, bu, out, iters, cycles (each or null), batch, nb, bound_stride,
+        #  stream)
+        "proj_box_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+        "proj_box_f64": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     },
 }
 

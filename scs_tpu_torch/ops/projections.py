@@ -174,10 +174,11 @@ def _proj_box_ref(v, bl, bu, n_iters=BOX_NEWTON_ITERS):
     return torch.cat([t, s], dim=-1)
 
 
-def _proj_box(v, bl, bu, iters_out=None):
+def _proj_box(v, bl, bu, iters_out=None, cycles_out=None):
     """Box-cone projection; shapes as _proj_box_ref. On CUDA: the proj_box
-    kernel, one thread block per problem. `iters_out`, an int32 (B,) tensor,
-    receives the Newton steps each problem ran."""
+    kernel, one warp per problem of up to 512 bounds, else one thread block.
+    `iters_out` and `cycles_out`, int32 (B,) tensors, receive the Newton
+    steps each problem ran and 1 where it left on a cycle."""
     dev = v.device
     if dev.type == "cpu":
         return _proj_box_ref(v, bl, bu)
@@ -195,13 +196,14 @@ def _proj_box(v, bl, bu, iters_out=None):
     _check_like("_proj_box", "bu", bu, v2, bl.shape)
     bl, bu = bl.contiguous(), bu.contiguous()
     _check_counts("_proj_box", iters_out, B, dev)
+    _check_counts("_proj_box", cycles_out, B, dev)
     out = torch.empty_like(v2)
     fn = _cone_symbol("proj_box", v2.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             v2.data_ptr(), bl.data_ptr(), bu.data_ptr(), out.data_ptr(),
-            _ptr(iters_out), B, nb, nb if per_row else 0, stream,
+            _ptr(iters_out), _ptr(cycles_out), B, nb, nb if per_row else 0, stream,
         )
     if rc != 0:
         raise RuntimeError(f"proj_box kernel launch failed: cudaError {rc}")
@@ -522,11 +524,29 @@ def _proj_exp_batch_ref(v, n_doubling=EXP_DOUBLINGS, n_bisect=EXP_BISECTIONS):
     return out
 
 
-def _proj_exp_batch(v, sign=None, evals_out=None):
+# Lanes per cone of the proj_exp kernel (csrc/cone_proj.cu): more lanes
+# shorten a cone's chain of solves, but the bisection tree's nodes that are
+# evaluated and not taken multiply the work. exp_group takes the largest G
+# of EXP_GROUPS with k * G <= EXP_FILL_THREADS, which on the rows the solver
+# hands the kernel (tools/cone_proto.py --groups) is the fastest G at each
+# of the wide batch's and the mixed_cone cell's counts: 32 lanes at
+# 640-1280 cones, 8 at 9,600, 4 at 19,200, one at 38,400.
+EXP_GROUPS = (32, 16, 8, 4, 1)
+EXP_FILL_THREADS = 80 * 1024
+
+
+def exp_group(k):
+    """The lanes per cone proj_exp takes for k cones."""
+    return next(g for g in EXP_GROUPS if g == 1 or k * g <= EXP_FILL_THREADS)
+
+
+def _proj_exp_batch(v, sign=None, evals_out=None, steps_out=None, cycles_out=None):
     """Rows of v (k, 3) onto the exponential cone; rows with sign[row] < 0
     onto its dual by Moreau (sign: (k,) of +-1, or None for all +1). On
-    CUDA: the proj_exp kernel, one thread per cone. `evals_out`, an int32
-    (k,) tensor, receives the inner Newton solves each row ran."""
+    CUDA: the proj_exp kernel, exp_group(k) lanes per cone. `evals_out`,
+    `steps_out` and `cycles_out`, int32 (k,) tensors, receive per row the
+    inner Newton solves on the serial loop's path (the plain version's
+    count), their Newton steps, and the solves that left on a cycle."""
     dev = v.device
     if dev.type == "cpu":
         return _signed(_proj_exp_batch_ref, v, sign)
@@ -538,14 +558,15 @@ def _proj_exp_batch(v, sign=None, evals_out=None):
     if sign is not None:
         _check_like("_proj_exp_batch", "sign", sign, v, (k,))
         sign = sign.contiguous()
-    _check_counts("_proj_exp_batch", evals_out, k, dev)
+    for counts in (evals_out, steps_out, cycles_out):
+        _check_counts("_proj_exp_batch", counts, k, dev)
     out = torch.empty_like(v)
     fn = _cone_symbol("proj_exp", v.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
-            v.data_ptr(), _ptr(sign), out.data_ptr(), _ptr(evals_out), k,
-            _explim(v), stream,
+            v.data_ptr(), _ptr(sign), out.data_ptr(), _ptr(evals_out), _ptr(steps_out),
+            _ptr(cycles_out), k, exp_group(k), _explim(v), stream,
         )
     if rc != 0:
         raise RuntimeError(f"proj_exp kernel launch failed: cudaError {rc}")

@@ -231,19 +231,112 @@ def box_case(B, nb, seed=0, per_row=False):
     return v, bl, bu
 
 
+class _Recorder:
+    """A wrapper in the place of `fn`: `keep` sees each call's tensors,
+    then `fn` runs. `launches` is fn's own counter (fn counts through the
+    module name it now shares with this recorder)."""
+
+    def __init__(self, fn, keep):
+        self._fn, self._keep = fn, keep
+
+    def __call__(self, *args, **kw):
+        self._keep(*args)
+        return self._fn(*args, **kw)
+
+    @property
+    def launches(self):
+        return self._fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self._fn.launches = n
+
+
+class CaptureRows:
+    """The rows a solve hands the proj_exp and proj_box kernels: inside
+    `with CaptureRows(every) as cap:`, every `every`-th call of each wrapper
+    is copied (cap.exp: (call, v, sign); cap.box: (call, v, bl, bu); tensors
+    on the call's device). The projector looks the wrappers up in
+    ops.projections at every call, so they are replaced there for the
+    block; the copies launch no kernel of theirs, and the launch counters
+    count as before."""
+
+    def __init__(self, every=50):
+        self.every, self.exp, self.box = every, [], []
+
+    def __enter__(self):
+        from ..ops import projections as pr  # noqa: PLC0415
+
+        self._saved = pr._proj_exp_batch, pr._proj_box
+        calls = {"exp": 0, "box": 0}
+
+        def keeper(kind, n):
+            def keep(*tensors):
+                if calls[kind] % self.every == 0:
+                    copies = tuple(None if t is None else t.detach().clone() for t in tensors[:n])
+                    getattr(self, kind).append((calls[kind], *copies + (None,) * (n - len(copies))))
+                calls[kind] += 1
+
+            return keep
+
+        pr._proj_exp_batch = _Recorder(self._saved[0], keeper("exp", 2))
+        pr._proj_box = _Recorder(self._saved[1], keeper("box", 3))
+        return self
+
+    def __exit__(self, *exc):
+        from ..ops import projections as pr  # noqa: PLC0415
+
+        pr._proj_exp_batch, pr._proj_box = self._saved
+
+    def phases(self, kind):
+        """{"early", "middle", "late"}: the second, the middle and the last
+        copy of `kind` ("exp" or "box"; the first call projects the solver's
+        starting point); and for each row count none of those has (a
+        bucket the batch was compacted to), "bucket": the middle copy at
+        that count."""
+        snaps = getattr(self, kind)
+        if not snaps:
+            return {}
+        out = {"early": snaps[min(1, len(snaps) - 1)], "middle": snaps[len(snaps) // 2],
+               "late": snaps[-1]}
+        by_rows = {}
+        for snap in snaps[1:]:
+            by_rows.setdefault(snap[1].shape[0], []).append(snap)
+        seen = {snap[1].shape[0] for snap in out.values()}
+        for rows, group in by_rows.items():
+            if rows not in seen:
+                out[f"bucket {rows}"] = group[len(group) // 2]
+        return out
+
+    def inputs(self, tag):
+        """The early, middle and late copies as check_cone_kernels' inputs
+        (numpy float64), labelled with `tag`, the call and the shape."""
+        as_np = lambda t: None if t is None else t.double().cpu().numpy()  # noqa: E731
+        exp = [
+            (f"{tag} {ph}, call {c}, {tuple(v.shape)}", as_np(v), as_np(sign))
+            for ph, (c, v, sign) in self.phases("exp").items()
+        ]
+        box = [
+            (f"{tag} {ph}, call {c}, {tuple(v.shape)} {'per-row' if bl.dim() == 2 else 'shared'} "
+             f"bounds", as_np(v.reshape(-1, v.shape[-1])), as_np(bl), as_np(bu))
+            for ph, (c, v, bl, bu) in self.phases("box").items()
+        ]
+        return exp, box
+
+
 # ---------------------------------------------------------------------------
 # The variational test of a projection, in f64 on the host
 # ---------------------------------------------------------------------------
 
 
-def _geometry(v, p, in_cone, in_dual, proj_cone, proj_dual, tol):
+def _geometry(v, p, in_cone, in_dual, proj_cone, proj_dual, tol, inner_tol=np.inf):
     """The variational test over rows (k, 3), float64: p in K, p - v in K*
     and <p, p - v> = 0, each relative to 1 + |v|. Membership is the oracle's
     membership function at tolerance tol or, where that refuses a point
     (its tolerance is not a distance: a coordinate off by one rounding can
     sit under an exponential), a distance from the oracle's own projection
-    within tol. Returns (the mask of rows that fail, worst |<p, p - v>| /
-    (1 + |v|)^2)."""
+    within tol; |<p, p - v>| / (1 + |v|)^2 within inner_tol. Returns (the
+    mask of rows that fail, worst |<p, p - v>| / (1 + |v|)^2)."""
     bad, worst = [], 0.0
     for vi, pi in zip(v, p):
         scale = 1.0 + np.abs(vi).max()
@@ -251,12 +344,13 @@ def _geometry(v, p, in_cone, in_dual, proj_cone, proj_dual, tol):
         ok = np.all(np.isfinite(pi))
         ok = ok and (in_cone(ps, tol) or np.linalg.norm(ps - proj_cone(ps)) <= tol)
         ok = ok and (in_dual(qs, tol) or np.linalg.norm(qs - proj_dual(qs)) <= tol)
+        ok = ok and abs(ps @ qs) <= inner_tol
         bad.append(not ok)
         worst = max(worst, abs(ps @ qs))
     return np.array(bad, bool), worst
 
 
-def geometry_exp(v, p, sign=None, tol=1e-5):
+def geometry_exp(v, p, sign=None, tol=1e-5, inner_tol=np.inf):
     """The test for rows projected onto the exponential cone (sign > 0 or
     None) or its dual (sign < 0)."""
     oracle = _oracle()
@@ -265,14 +359,16 @@ def geometry_exp(v, p, sign=None, tol=1e-5):
     proj = oracle.proj_exp
     proj_d = lambda w: w + oracle.proj_exp(-w)  # noqa: E731
     with np.errstate(all="ignore"):
-        b1, w1 = _geometry(v[~dual], p[~dual], oracle.in_exp, oracle.in_exp_dual, proj, proj_d, tol)
-        b2, w2 = _geometry(v[dual], p[dual], oracle.in_exp_dual, oracle.in_exp, proj_d, proj, tol)
+        b1, w1 = _geometry(v[~dual], p[~dual], oracle.in_exp, oracle.in_exp_dual, proj, proj_d, tol,
+                           inner_tol)
+        b2, w2 = _geometry(v[dual], p[dual], oracle.in_exp_dual, oracle.in_exp, proj_d, proj, tol,
+                           inner_tol)
     bad = np.zeros(len(v), bool)
     bad[~dual], bad[dual] = b1, b2
     return bad, max(w1, w2)
 
 
-def geometry_pow(v, p, a, sign=None, tol=1e-5):
+def geometry_pow(v, p, a, sign=None, tol=1e-5, inner_tol=np.inf):
     """The test for rows projected onto the power cone K_a[row] or its dual."""
     oracle = _oracle()
     v, p = np.asarray(v, np.float64), np.asarray(p, np.float64)
@@ -288,17 +384,17 @@ def geometry_pow(v, p, a, sign=None, tol=1e-5):
             )
             if di:
                 fns = (fns[1], fns[0], fns[3], fns[2])
-            b, w = _geometry(vi[None], pi[None], *fns, tol)
+            b, w = _geometry(vi[None], pi[None], *fns, tol, inner_tol)
             bad.append(b[0])
             worst = max(worst, w)
     return np.array(bad, bool), worst
 
 
-def geometry_box(v, p, bl, bu, tol=1e-5):
+def geometry_box(v, p, bl, bu, tol=1e-5, inner_tol=np.inf):
     """Rows (t, s) projected onto the box cone: p in K (t >= 0, bl t <= s <=
     bu t) and p no farther from v than the oracle's golden-section answer,
-    relative to 1 + |v|. Returns (the mask of rows that fail, worst excess
-    distance)."""
+    by tol and by inner_tol, relative to 1 + |v|. Returns (the mask of rows
+    that fail, worst excess distance)."""
     oracle = _oracle()
     v, p = np.asarray(v, np.float64), np.asarray(p, np.float64)
     bad, worst = [], 0.0
@@ -314,7 +410,7 @@ def geometry_box(v, p, bl, bu, tol=1e-5):
         with np.errstate(invalid="ignore"):
             ref = oracle.proj_box(vi, lo, hi)
         excess = (np.linalg.norm(pi - vi) - np.linalg.norm(ref - vi)) / scale
-        bad.append(not inside or excess > tol)
+        bad.append(not inside or excess > min(tol, inner_tol))
         worst = max(worst, excess)
     return np.array(bad, bool), worst
 
@@ -399,17 +495,27 @@ REPORT_AT = {"proj_exp": 38400, "proj_pow": 12800, "proj_box": (128, 400, True)}
 
 def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_sizes=POW_SIZES,
                        box_cases=BOX_CASES, report_at=None, geometry_rows=2100, plain_reps=2,
-                       log=print):
+                       log=print, exp_inputs=(), box_inputs=(),
+                       dtypes=(torch.float32, torch.float64)):
     """proj_exp, proj_pow and proj_box against their plain versions on the
     card, f32 and f64: the row-wise limit KERNEL_TOL, a bit-equal repeat,
     the geometry of the kernel's answer in f64 on the host (on at most
-    `geometry_rows` rows of a case; it must hold wherever it holds for the
-    plain version's answer: on a few extreme rows the algorithm itself, and
-    the oracle's, stop short of the projection), CUDA-event times of kernel and plain
-    version, and the bound from the passes this run's data needed. Returns
-    {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-    "shape"}} in f32 at the sizes of `report_at` (default REPORT_AT, the
-    wide batch's shapes)."""
+    `geometry_rows` rows of a case: membership, and |<p, p - v>| or the
+    excess distance within INNER_TOL; it must hold on every row where it
+    holds for the plain version's answer: on a few extreme rows the
+    algorithm itself, scs_tpu's too, and the oracle's, stop short of the
+    projection), CUDA-event times of kernel and plain
+    version, and the bound from the passes this run's data needed. Beside
+    the synthetic sizes, given inputs: `exp_inputs` (label, v (k, 3), sign
+    (k,) or None) and `box_inputs` (label, v (B, nb + 1), bl, bu), numpy
+    float64, such as the rows a solve handed the kernels (CaptureRows).
+    Returns {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    "bound_steps_ms", "shape"}} in f32 at the sizes of `report_at` (default
+    REPORT_AT, the wide batch's shapes). bound_ms counts the plain
+    algorithm's passes (for proj_exp its solves at 40 Newton steps each);
+    bound_steps_ms the Newton steps the kernel ran, its exits at fixed
+    points and cycles taken (proj_pow and proj_box count those in
+    bound_ms already)."""
     report_at = REPORT_AT if report_at is None else report_at
     from ..ops import projections as pr  # noqa: PLC0415
 
@@ -419,13 +525,15 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
     def both(geometry, out_k, out_p, sub, *args, **kw):
         """The geometry of the kernel's and of the plain version's answer on
         rows `sub`: (rows where only the kernel's fails, rows where both
-        fail, the kernel's worst inner product or excess distance)."""
+        fail, the kernel's worst inner product or excess distance over all
+        of them)."""
         as_np = lambda t: t[sub].double().cpu().numpy()  # noqa: E731
         bad_k, worst = geometry(as_np(out_k), *args, **kw)
         bad_p, _ = geometry(as_np(out_p), *args, **kw)
         return int((bad_k & ~bad_p).sum()), int((bad_k & bad_p).sum()), worst
 
-    def finish(name, label, dtype, v, out_k, out_p, geo, k_ms, p_ms, bound, passes, key):
+    def finish(name, label, dtype, v, out_k, out_p, geo, k_ms, p_ms, bound, passes, key,
+               bound_steps=None):
         bad, bad_both, worst = geo
         rows = _row_err(out_k, out_p, v)
         err, n_stray = float(rows.max()), int((rows > KERNEL_TOL[dtype]).sum())
@@ -438,60 +546,115 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
                 f"kernel disagrees with the plain version: {n_stray} of {rows.numel()} rows "
                 f"over {KERNEL_TOL[dtype]:g} of max(1, |v|), worst {err:.3e}"
             )
-        if bad or not worst <= INNER_TOL[dtype]:
+        if bad:
             faults.append(
-                f"{bad} rows of the kernel's answer fail cone membership where the plain "
-                f"version's pass; worst |<p, p - v>| or excess distance {worst:.3e}"
+                f"{bad} rows of the kernel's answer fail cone membership or |<p, p - v>| (excess "
+                f"distance) <= {INNER_TOL[dtype]:g} where the plain version's pass; worst "
+                f"{worst:.3e}"
             )
         if faults:
             raise AssertionError(f"{name} {label} {dtype}: " + "; ".join(faults))
         log(
             f"[3] {name} {label} {str(dtype)[6:]}: max |kernel - plain| {err:.3e} of max(1, |v|), "
             f"{n_stray} rows over {KERNEL_TOL[dtype]:g} (absolute {abs_err:.3e}), repeat bit-equal; f64 "
-            f"geometry of the kernel's answer: p in K and p - v in K* on every row checked but "
-            f"{bad_both} where the plain version's fails too, worst |<p, p - v>| or excess "
-            f"distance {worst:.2e}; {passes}; kernel {k_ms:.4f} ms, "
+            f"geometry of the kernel's answer: p in K, p - v in K* and |<p, p - v>| (excess "
+            f"distance) within {INNER_TOL[dtype]:g} on every row checked but {bad_both} where the "
+            f"plain version's fails too, worst {worst:.2e}; {passes}; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.2f} ms, bound {bound[0]:.6f} ms by {bound[1]}"
+            + ("" if bound_steps is None else
+               f" (from the Newton steps run: {bound_steps[0]:.6f} ms by {bound_steps[1]})")
         )
         if key:
+            bound_steps = bound if bound_steps is None else bound_steps
             report[name] = {
                 "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "shape": label,
+                "bound_by": bound[1], "bound_steps_ms": bound_steps[0], "shape": label,
             }
 
-    for dtype in (torch.float32, torch.float64):
+    def run_exp(label, v_np, sign_np, dtype, geo_tol, key):
+        k = len(v_np)
+        sub = slice(0, min(k, geometry_rows))
+        v = torch.as_tensor(v_np, dtype=dtype, device=dev)
+        sign = None if sign_np is None else torch.as_tensor(sign_np, dtype=dtype, device=dev)
+        evals, steps, cycles = (torch.zeros(k, dtype=torch.int32, device=dev) for _ in range(3))
+        out_k = pr._proj_exp_batch(v, sign, evals, steps, cycles)
+        if not torch.equal(out_k, pr._proj_exp_batch(v, sign)):
+            raise AssertionError(f"proj_exp {label} {dtype}: a repeated launch differs")
+        out_p = pr._signed(pr._proj_exp_batch_ref, v, sign)
+        torch.cuda.synchronize()
+        geo = both(
+            lambda p: geometry_exp(v[sub].double().cpu().numpy(), p,
+                                   None if sign_np is None else sign_np[sub], tol=geo_tol,
+                                   inner_tol=INNER_TOL[dtype]),
+            out_k, out_p, sub,
+        )
+        n_solves, n_steps = int(evals.sum()), int(steps.sum())
+        ops = n_solves * (pr.EXP_NEWTON_ITERS * EXP_OPS_PER_NEWTON + EXP_OPS_PER_SOLVE)
+        ops_run = n_steps * EXP_OPS_PER_NEWTON + n_solves * EXP_OPS_PER_SOLVE
+        finish(
+            "proj_exp", label, dtype, v, out_k, out_p, geo,
+            _time_ms(lambda: pr._proj_exp_batch(v, sign)),
+            _time_ms(lambda: pr._signed(pr._proj_exp_batch_ref, v, sign), plain_reps),
+            _bound_ms(k * 7 * item, ops, dtype, hbm_bytes_per_s, peak_flops),
+            f"{pr.exp_group(k)} lanes a cone; {n_solves} inner Newton solves in all, at most "
+            f"{int(evals.max())} a row, {n_steps} Newton steps, {int(cycles.sum())} solves "
+            f"left on a cycle",
+            key, _bound_ms(k * 7 * item, ops_run, dtype, hbm_bytes_per_s, peak_flops),
+        )
+
+    def run_box(label, v_np, bl_np, bu_np, dtype, geo_tol, key):
+        B, nb = v_np.shape[0], v_np.shape[1] - 1
+        per_row = np.ndim(bl_np) == 2
+        v = torch.as_tensor(v_np, dtype=dtype, device=dev)
+        bl = torch.as_tensor(bl_np, dtype=dtype, device=dev)
+        bu = torch.as_tensor(bu_np, dtype=dtype, device=dev)
+        iters, cycles = (torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(2))
+        out_k = pr._proj_box(v, bl, bu, iters_out=iters, cycles_out=cycles)
+        if not torch.equal(out_k, pr._proj_box(v, bl, bu)):
+            raise AssertionError(f"proj_box {label} {dtype}: a repeated launch differs")
+        if not per_row:
+            # the same bounds given row by row must give the same bits
+            rows = pr._proj_box(v, bl.expand(B, nb).contiguous(), bu.expand(B, nb).contiguous())
+            if not torch.equal(out_k, rows):
+                raise AssertionError(f"proj_box {label} {dtype}: shared and per-row bounds differ")
+        out_p = pr._proj_box_ref(v, bl, bu)
+        torch.cuda.synchronize()
+        gsub = slice(0, min(B, 64))
+        geo = both(
+            lambda p: geometry_box(
+                v_np[gsub], p, bl_np[gsub] if per_row else bl_np,
+                bu_np[gsub] if per_row else bu_np, tol=geo_tol, inner_tol=INNER_TOL[dtype],
+            ),
+            out_k, out_p, gsub,
+        )
+        n_steps = int(iters.sum())
+        n_bytes = (2 * B * (nb + 1) + 2 * (B if per_row else 1) * nb) * item
+        finish(
+            "proj_box", label, dtype, v, out_k, out_p, geo,
+            _time_ms(lambda: pr._proj_box(v, bl, bu)),
+            _time_ms(lambda: pr._proj_box_ref(v, bl, bu), plain_reps),
+            _bound_ms(n_bytes, (n_steps + B) * nb * BOX_OPS_PER_ELEMENT, dtype,
+                      hbm_bytes_per_s, peak_flops),
+            f"{n_steps} Newton steps in all, at most {int(iters.max())} a problem, "
+            f"{int(cycles.sum())} left on a cycle",
+            key,
+        )
+
+    for dtype in dtypes:
         item = 4 if dtype == torch.float32 else 8
+        f32 = dtype == torch.float32
         # membership in f64 is certified to the oracle's own resolution (its
         # bisection ends at ~1e-6 of the point), no further
-        geo_tol = 1e-4 if dtype == torch.float32 else 3e-6
+        geo_tol = 1e-4 if f32 else 3e-6
         for k in exp_sizes:
-            sub = slice(0, min(k, geometry_rows))
             # exponential cone, a third of the rows to the dual cone
             v_np = exp_rows(k, seed=k % 1000)
             sign_np = np.where(np.arange(k) % 3 == 0, -1.0, 1.0)
             v_np = v_np * sign_np[:, None]  # so that every regime reaches both cones
-            v = torch.as_tensor(v_np, dtype=dtype, device=dev)
-            sign = torch.as_tensor(sign_np, dtype=dtype, device=dev)
-            evals = torch.zeros(k, dtype=torch.int32, device=dev)
-            out_k = pr._proj_exp_batch(v, sign, evals_out=evals)
-            if not torch.equal(out_k, pr._proj_exp_batch(v, sign)):
-                raise AssertionError(f"proj_exp k={k} {dtype}: a repeated launch differs")
-            out_p = pr._signed(pr._proj_exp_batch_ref, v, sign)
-            torch.cuda.synchronize()
-            geo = both(
-                lambda p: geometry_exp(v[sub].double().cpu().numpy(), p, sign_np[sub], tol=geo_tol),
-                out_k, out_p, sub,
-            )
-            n_solves = int(evals.sum())
-            ops = n_solves * (pr.EXP_NEWTON_ITERS * EXP_OPS_PER_NEWTON + EXP_OPS_PER_SOLVE)
-            finish(
-                "proj_exp", f"(k={k}, 3)", dtype, v, out_k, out_p, geo,
-                _time_ms(lambda: pr._proj_exp_batch(v, sign)),
-                _time_ms(lambda: pr._signed(pr._proj_exp_batch_ref, v, sign), plain_reps),
-                _bound_ms(k * 7 * item, ops, dtype, hbm_bytes_per_s, peak_flops),
-                f"{n_solves} inner Newton solves in all, at most {int(evals.max())} a row",
-                k == report_at["proj_exp"] and dtype == torch.float32,
-            )
+            run_exp(f"(k={k}, 3)", v_np, sign_np, dtype, geo_tol,
+                    k == report_at["proj_exp"] and f32)
+        for label, v_np, sign_np in exp_inputs:
+            run_exp(label, v_np, sign_np, dtype, geo_tol, False)
         for k in pow_sizes:
             sub = slice(0, min(k, geometry_rows))
             v_np, a_np, sign_np = pow_rows(k, seed=k % 1000 + 1)
@@ -508,7 +671,7 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
             geo = both(
                 lambda p: geometry_pow(
                     v[sub].double().cpu().numpy(), p, a[sub].double().cpu().numpy(),
-                    sign_np[sub], tol=geo_tol,
+                    sign_np[sub], tol=geo_tol, inner_tol=INNER_TOL[dtype],
                 ),
                 out_k, out_p, sub,
             )
@@ -519,45 +682,15 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
                 _bound_ms(k * 8 * item, n_steps * POW_OPS_PER_NEWTON, dtype,
                           hbm_bytes_per_s, peak_flops),
                 f"{n_steps} Newton steps in all, at most {int(iters.max())} a row",
-                k == report_at["proj_pow"] and dtype == torch.float32,
+                k == report_at["proj_pow"] and f32,
             )
         # box cone: one problem, and a batch under shared and per-row bounds
         for B, nb, per_row in box_cases:
             v_np, bl_np, bu_np = box_case(B, nb, seed=B + per_row, per_row=per_row)
-            v = torch.as_tensor(v_np, dtype=dtype, device=dev)
-            bl = torch.as_tensor(bl_np, dtype=dtype, device=dev)
-            bu = torch.as_tensor(bu_np, dtype=dtype, device=dev)
-            iters = torch.zeros(B, dtype=torch.int32, device=dev)
-            out_k = pr._proj_box(v, bl, bu, iters_out=iters)
-            if not torch.equal(out_k, pr._proj_box(v, bl, bu)):
-                raise AssertionError(f"proj_box B={B} {dtype}: a repeated launch differs")
-            if not per_row:
-                # the same bounds given row by row must give the same bits
-                rows = pr._proj_box(v, bl.expand(B, nb).contiguous(), bu.expand(B, nb).contiguous())
-                if not torch.equal(out_k, rows):
-                    raise AssertionError(f"proj_box B={B} {dtype}: shared and per-row bounds differ")
-            out_p = pr._proj_box_ref(v, bl, bu)
-            torch.cuda.synchronize()
-            gsub = slice(0, min(B, 64))
-            geo = both(
-                lambda p: geometry_box(
-                    v_np[gsub], p, bl_np[gsub] if per_row else bl_np,
-                    bu_np[gsub] if per_row else bu_np, tol=geo_tol,
-                ),
-                out_k, out_p, gsub,
-            )
-            n_steps = int(iters.sum())
-            n_bytes = (2 * B * (nb + 1) + 2 * (B if per_row else 1) * nb) * item
-            finish(
-                "proj_box", f"({B}, {nb + 1}) {'per-row' if per_row else 'shared'} bounds", dtype,
-                v, out_k, out_p, geo,
-                _time_ms(lambda: pr._proj_box(v, bl, bu)),
-                _time_ms(lambda: pr._proj_box_ref(v, bl, bu), plain_reps),
-                _bound_ms(n_bytes, (n_steps + B) * nb * BOX_OPS_PER_ELEMENT, dtype,
-                          hbm_bytes_per_s, peak_flops),
-                f"{n_steps} Newton steps in all, at most {int(iters.max())} a problem",
-                (B, nb, per_row) == tuple(report_at["proj_box"]) and dtype == torch.float32,
-            )
+            run_box(f"({B}, {nb + 1}) {'per-row' if per_row else 'shared'} bounds", v_np, bl_np,
+                    bu_np, dtype, geo_tol, (B, nb, per_row) == tuple(report_at["proj_box"]) and f32)
+        for label, v_np, bl_np, bu_np in box_inputs:
+            run_box(label, v_np, bl_np, bu_np, dtype, geo_tol, False)
     return report
 
 

@@ -187,6 +187,210 @@ def test_box_shared_and_per_row_bounds_agree():
 
 
 # ---------------------------------------------------------------------------
+# Two-cycles: the kernels leave a Newton iteration whose iterate alternates
+# between two values (t_{k+1} == t_{k-1}) and return the one the fixed count
+# ends on, chosen by the parity of the steps left. These tests hold that
+# premise against the plain versions, which run the fixed count.
+# ---------------------------------------------------------------------------
+
+
+def _parity_points(iterates, n_fixed):
+    """iterates (n_fixed + 1, rows): t_0 .. t_{n_fixed} of a map, one column
+    a row. Per row, the first step k >= 1 with t_{k+1} == t_{k-1} != t_k,
+    and the point the kernels return there: t_{k+1} if the steps left after
+    step k + 1 are even, else t_k."""
+    ks, points = [], []
+    for col in iterates.T:
+        k = next(k for k in range(1, n_fixed) if col[k + 1] == col[k - 1] != col[k])
+        ks.append(k)
+        points.append(col[k + 1] if (n_fixed - 1 - k) % 2 == 0 else col[k])
+    return np.array(ks), np.array(points)
+
+
+def _box_cycling_rows(tdt):
+    """Rows of mc.box_case whose plain projection ends on a two-cycle."""
+    v, bl, bu = mc.box_case(400, 20, seed=3, per_row=True)
+    t = [tpr._proj_box_ref(_t(v, tdt), _t(bl, tdt), _t(bu, tdt), n_iters=n)[:, 0].numpy()
+         for n in (98, 99, 100)]
+    rows = (t[0] == t[2]) & (t[0] != t[1])
+    return v[rows], bl[rows], bu[rows]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_box_two_cycle_ends_on_the_parity_point(dtype):
+    jdt, tdt = DTYPES[dtype]
+    v, bl, bu = _box_cycling_rows(tdt)
+    assert len(v) >= 10  # a tenth of the rows cycle, in f32 and f64 alike
+    tv, tl, tu = _t(v, tdt), _t(bl, tdt), _t(bu, tdt)
+    # every row cycles, so no step of the batch is a fixed point of all of
+    # them and n_iters = k gives each row's k-th iterate
+    iterates = np.stack([tpr._proj_box_ref(tv, tl, tu, n_iters=k)[:, 0].numpy()
+                         for k in range(tpr.BOX_NEWTON_ITERS + 1)])
+    t98, t99, t100 = iterates[98], iterates[99], iterates[100]
+    np.testing.assert_array_equal(t98, t100)
+    assert (t99 != t100).all()
+    ks, points = _parity_points(iterates, tpr.BOX_NEWTON_ITERS)
+    np.testing.assert_array_equal(points, t100)
+    assert ks.max() < 90  # the cycle starts well before the fixed count ends
+    # the whole projection is the one at the parity point's t, and scs_tpu's
+    # fixed count lands there too
+    out = tpr._proj_box_ref(tv, tl, tu).numpy()
+    np.testing.assert_array_equal(out[:, 0], points)
+    ref = np.stack([np.asarray(jpr._proj_box(jnp.asarray(v[i], jdt), jnp.asarray(bl[i], jdt),
+                                             jnp.asarray(bu[i], jdt))) for i in range(len(v))])
+    _close(out, ref, v, dtype)
+
+
+def _exp_newton_cycling(tdt, n=20000, seed=0):
+    """Inputs (rho, y_hat, z_hat, w) of the inner Newton whose plain run
+    ends on a two-cycle."""
+    rng = np.random.RandomState(seed)
+    mag = lambda: 10.0 ** rng.uniform(-3, 3, n)  # noqa: E731
+    rho = 10.0 ** rng.uniform(-4, 4, n)
+    y, z, w = rng.randn(n) * mag(), rng.randn(n) * mag(), rng.randn(n) * mag()
+    args = [_t(a, tdt) for a in (rho, y, z, w)]
+    t = [tpr._exp_newton_onz(*args, n_iters=k).numpy() for k in (38, 39, 40)]
+    rows = (t[0] == t[2]) & (t[0] != t[1])
+    return [a[rows] for a in (rho, y, z, w)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_exp_newton_two_cycle_ends_on_the_parity_point(dtype):
+    jdt, tdt = DTYPES[dtype]
+    rho, y, z, w = _exp_newton_cycling(tdt)
+    assert len(rho) >= 100  # about one inner solve in seven cycles here
+    args = [_t(a, tdt) for a in (rho, y, z, w)]
+    iterates = np.stack([tpr._exp_newton_onz(*args, n_iters=k).numpy()
+                         for k in range(tpr.EXP_NEWTON_ITERS + 1)])
+    np.testing.assert_array_equal(iterates[38], iterates[40])
+    assert (iterates[39] != iterates[40]).all()
+    ks, points = _parity_points(iterates, tpr.EXP_NEWTON_ITERS)
+    np.testing.assert_array_equal(points, iterates[40])
+    assert ks.min() < 20  # many cycles start early: the steps an exit saves
+    if dtype == "f64":
+        # scs_tpu's fixed count of 40 lands on the same point (in f32 the two
+        # points of a cycle can lie far apart, and XLA's fused arithmetic
+        # can fall into another cycle than PyTorch's)
+        ref = np.asarray(jpr._exp_newton_onz(*(jnp.asarray(a, jdt) for a in (rho, y, z, w))))
+        _close(iterates[40][:, None], ref[:, None], np.stack([rho, y, z, w], 1), dtype)
+
+
+def _exit_points(iterates, n_fixed, plain_steps=0):
+    """The kernels' exit from a Newton iteration of n_fixed steps
+    (newton_fixed_count in csrc/cone_proj.cu, whose first `plain_steps`
+    steps test for a fixed point alone), replayed on iterates
+    (n_fixed + 1, rows): per row (the step i at which the loop leaves:
+    t_{i+1} repeats t_i, or, from step plain_steps on, t_i repeats t_{i-2}
+    or the checkpoint kept at the powers of two; n_fixed if nothing
+    repeats; the period p, 1 for a fixed point, 0 where nothing repeats;
+    the point returned: t_i stepped on (n_fixed - i) mod p times on a
+    cycle)."""
+    out = []
+    for col in iterates.T:
+        t, prev, prev2, saved = col[0], np.nan, np.nan, np.nan
+        at = seen = 0
+        res = (n_fixed, 0, col[n_fixed])
+        for i in range(n_fixed):
+            if i < plain_steps:
+                if col[i + 1] == t:
+                    res = (i, 1, t)
+                    break
+                t = col[i + 1]
+                continue
+            cycle = t == prev2 or t == saved
+            seen = at
+            if i & (i - 1) == 0:
+                saved, at = t, i
+            if col[i + 1] == t or cycle:
+                p = (2 if t == prev2 else i - seen) if cycle else 1
+                res = (i, p, col[i + (n_fixed - i) % p] if cycle else t)
+                break
+            prev2, prev, t = prev, t, col[i + 1]
+        out.append(res)
+    return out
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_box_cycles_of_any_period_end_where_the_fixed_count_does(dtype):
+    _, tdt = DTYPES[dtype]
+    v, bl, bu = (_t(a, tdt) for a in mc.box_case(2000, 20, seed=5, per_row=True))
+    iterates = np.stack([tpr._proj_box_ref(v, bl, bu, n_iters=k)[:, 0].numpy()
+                         for k in range(tpr.BOX_NEWTON_ITERS + 1)])
+    exits = _exit_points(iterates, tpr.BOX_NEWTON_ITERS)
+    np.testing.assert_array_equal([pt for *_, pt in exits], iterates[-1])
+    periods = [p for _, p, _ in exits]
+    assert periods.count(2) >= 100 and sum(p >= 3 for p in periods) >= 3
+    assert max(i for i, p, _ in exits if p) < 60  # the exits come early
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_exp_newton_cycles_of_any_period_end_where_the_fixed_count_does(dtype):
+    _, tdt = DTYPES[dtype]
+    rng = np.random.RandomState(1)
+    n = 5000
+    mag = lambda: 10.0 ** rng.uniform(-3, 3, n)  # noqa: E731
+    args = [_t(a, tdt) for a in (10.0 ** rng.uniform(-4, 4, n), rng.randn(n) * mag(),
+                                 rng.randn(n) * mag(), rng.randn(n) * mag())]
+    iterates = np.stack([tpr._exp_newton_onz(*args, n_iters=k).numpy()
+                         for k in range(tpr.EXP_NEWTON_ITERS + 1)])
+    # with the cycle tests from the first step, and from step 4 on as
+    # proj_exp runs them (kExpPlainSteps)
+    for plain_steps in (0, 4):
+        exits = _exit_points(iterates, tpr.EXP_NEWTON_ITERS, plain_steps)
+        np.testing.assert_array_equal([pt for *_, pt in exits], iterates[-1])
+        periods = np.array([p for _, p, _ in exits])
+        # periods of 3 and more are common here, and the exits save steps
+        assert (periods >= 3).sum() >= 0.1 * n
+        assert np.mean([i + 1 if p else 40 for i, p, _ in exits]) < 15
+
+
+def test_exp_group_fills_the_card():
+    """proj_exp's lanes a cone: the largest G of EXP_GROUPS whose
+    threads stay within EXP_FILL_THREADS, one lane when none does."""
+    for k in (1, 7, 640, 1280, 2561, 4224, 9600, 19200, 20481, 38400, 10**6):
+        g = tpr.exp_group(k)
+        assert g in tpr.EXP_GROUPS
+        assert g == 1 or k * g <= tpr.EXP_FILL_THREADS
+        assert all(k * h > tpr.EXP_FILL_THREADS for h in tpr.EXP_GROUPS if h > g)
+    assert [tpr.exp_group(k) for k in (1280, 9600, 19200, 38400, 10**6)] == [32, 8, 4, 1, 1]
+
+
+def test_capture_rows_copies_every_nth_call_and_puts_the_wrappers_back():
+    K = {"z": 2, "l": 6, "bu": [1.0, np.inf, 2.0], "bl": [-1.0, 0.0, -np.inf], "ep": 2, "ed": 1}
+    data, _ = _mixed_batch(2, K)
+    exp_fn, box_fn = tpr._proj_exp_batch, tpr._proj_box
+    with mc.CaptureRows(every=4) as cap:
+        scs_tpu_torch.BatchedSCS(data, K, device="cpu", max_iters=30).solve()
+    assert (tpr._proj_exp_batch, tpr._proj_box) == (exp_fn, box_fn)
+    assert [c for c, *_ in cap.exp] == list(range(0, 4 * len(cap.exp), 4))
+    assert len(cap.exp) == len(cap.box) >= 3
+    c, v, sign = cap.exp[1]
+    assert v.shape == (2 * 3, 3) and sign.tolist() == [1.0, 1.0, -1.0] * 2
+    c, v, bl, bu = cap.box[1]
+    assert v.shape == (2, 4) and bl.shape == bu.shape == (2, 3)
+    phases = cap.phases("box")
+    assert [phases[p][0] for p in ("early", "middle", "late")] == [
+        cap.box[1][0], cap.box[len(cap.box) // 2][0], cap.box[-1][0]]
+    exp_in, box_in = cap.inputs("t")
+    assert [x[0].split(",")[0] for x in exp_in] == ["t early", "t middle", "t late"]
+    assert all(isinstance(a, np.ndarray) and a.dtype == np.float64 for a in box_in[0][1:])
+    # a wrapper counts its launches through its module name: inside the
+    # block that count still lands on the wrapper's own counter
+    before = exp_fn.launches
+    with mc.CaptureRows():
+        tpr._proj_exp_batch.launches += 2
+    assert exp_fn.launches == before + 2
+    exp_fn.launches = before
+    # the copies are the rows the projector was handed
+    spec = ConeSpec.from_dict(K)
+    z = torch.as_tensor(np.random.RandomState(2).randn(2, spec.dim))
+    with mc.CaptureRows(every=1) as cap:
+        tpr.make_cone_projector(spec)(z)
+    np.testing.assert_array_equal(cap.box[0][1].numpy(), z[:, 8:12].numpy())  # the box segment
+    np.testing.assert_array_equal(cap.exp[0][1].numpy(), z[:, 12:21].reshape(6, 3).numpy())
+
+
+# ---------------------------------------------------------------------------
 # Against the numpy oracle
 # ---------------------------------------------------------------------------
 
@@ -578,23 +782,56 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _exp_group_sizes():
+    """A cone count at which exp_group picks each G of EXP_GROUPS, none of
+    them a multiple of its G > 1."""
+    sizes = [tpr.EXP_FILL_THREADS // g - 1 for g in tpr.EXP_GROUPS if g > 1]
+    sizes.append(tpr.EXP_FILL_THREADS + 1)
+    assert [tpr.exp_group(k) for k in sizes] == list(tpr.EXP_GROUPS)
+    assert all(k % g for k, g in zip(sizes, tpr.EXP_GROUPS) if g > 1)
+    return tuple(sizes)
+
+
+def _exp_cycling_rows(device, dtype, k=20000):
+    """exp_rows whose inner solves end on a cycle on the card (counted by
+    the kernel itself), at the most lanes a cone and, repeated, at one."""
+    v = mc.exp_rows(k, seed=11)
+    cycles = torch.zeros(k, dtype=torch.int32, device=device)
+    tpr._proj_exp_batch(torch.as_tensor(v, dtype=dtype, device=device), cycles_out=cycles)
+    rows = v[cycles.cpu().numpy() > 0]
+    assert len(rows) >= 100
+    few, many = rows[: tpr.EXP_FILL_THREADS // 32], np.resize(rows, (tpr.EXP_FILL_THREADS + 1, 3))
+    assert (tpr.exp_group(len(few)), tpr.exp_group(len(many))) == (32, 1)
+    return [(f"rows whose solves cycle, G = {tpr.exp_group(len(r))}", r, None) for r in (few, many)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kernel", ["exp", "pow", "box"])
+@pytest.mark.parametrize("kernel", ["exp", "pow", "box", "exp_groups", "exp_cycles", "box_cycles"])
 def test_cone_kernels_match_plain_on_card(cuda_device, kernel, dtype):
     """check_cone_kernels' gates (agreement to KERNEL_TOL, bit-equal repeat,
-    geometry in f64) at small sizes, one kernel at a time."""
+    geometry in f64) at small sizes, one kernel at a time; proj_exp also at
+    every lanes-per-cone G on cone counts that no G > 1 divides, and the
+    two redesigned kernels on rows whose Newton iterations two-cycle."""
     sizes = dict(exp_sizes=(), pow_sizes=(), box_cases=())
-    sizes[{"exp": "exp_sizes", "pow": "pow_sizes", "box": "box_cases"}[kernel]] = {
-        "exp": (7, 700, 20000), "pow": (5, 500, 20000),
-        "box": ((1, 1, False), (3, 77, True), (64, 1000, False), (5, 3000, True)),
-    }[kernel]
+    if kernel in ("exp", "pow", "box"):
+        sizes[{"exp": "exp_sizes", "pow": "pow_sizes", "box": "box_cases"}[kernel]] = {
+            "exp": (7, 700, 20000), "pow": (5, 500, 20000),
+            "box": ((1, 1, False), (3, 77, True), (64, 1000, False), (5, 3000, True)),
+        }[kernel]
+    elif kernel == "exp_groups":
+        sizes["exp_sizes"] = _exp_group_sizes()
+    elif kernel == "exp_cycles":
+        sizes["exp_inputs"] = _exp_cycling_rows(cuda_device, dtype)
+    else:
+        v, bl, bu = _box_cycling_rows(dtype)
+        sizes["box_inputs"] = [("rows that two-cycle", v, bl, bu)]
     launches = sum(f.launches for f in (tpr._proj_exp_batch, tpr._proj_pow_batch, tpr._proj_box))
     lines = []
     mc.check_cone_kernels(3.35e12, {torch.float32: 67e12, torch.float64: 34e12},
                           report_at={"proj_exp": 0, "proj_pow": 0, "proj_box": ()},
-                          geometry_rows=350, log=lines.append, **sizes)
-    assert [ln for ln in lines if str(dtype)[6:] in ln]  # a fault would have raised
+                          geometry_rows=350, log=lines.append, dtypes=(dtype,), **sizes)
+    assert lines and all(str(dtype)[6:] in ln for ln in lines)  # a fault would have raised
     assert sum(f.launches for f in (tpr._proj_exp_batch, tpr._proj_pow_batch, tpr._proj_box)) > launches
 
 
@@ -605,6 +842,11 @@ def test_cone_wrappers_raise_on_card_for_bad_input(cuda_device):
         tpr._proj_exp_batch(torch.zeros((4, 2), device=cuda_device))
     with pytest.raises(TypeError):
         tpr._proj_exp_batch(v.half())
+    with pytest.raises(ValueError):
+        tpr._proj_exp_batch(v, steps_out=torch.zeros(4, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError):
+        tpr._proj_box(torch.zeros((2, 3), device=cuda_device), torch.zeros(2, device=cuda_device),
+                      torch.zeros(2, device=cuda_device), cycles_out=torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):
         tpr._proj_pow_batch(v, torch.zeros(3, device=cuda_device))
     with pytest.raises(ValueError):
