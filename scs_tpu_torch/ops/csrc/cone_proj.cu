@@ -50,7 +50,16 @@
 // g within that of 0 can flip; the result agrees with the plain version to
 // the stated tolerance, as the first design's did.
 //
-// proj_pow: one thread per cone, a chain of up to 40 Newton steps.
+// proj_pow: one thread per cone, a chain of up to 40 Newton steps, left at
+// a fixed point. The step is a function of r alone, so a row could also
+// leave on a cycle, exactly; but most f32 rows that cycle sit in warps that
+// hold a row which wanders all 40 steps without repeating, so where the
+// cones fit in one wave (every shape the solver hands it) the time is the
+// launch plus 40 steps of one chain whatever the exits. Exits on two-cycles
+// (parity) and on cycles of any period (newton_fixed_count), and two lanes
+// a cone (the x and y halves of a step), were each measured on the
+// solver's rows and were slower than this loop; the lane pairs did not
+// give its bits either.
 //
 // proj_box: each Newton step on t is a pass over the problem's bounds and
 // one reduction over them, up to 100 steps; the first design (a 256-thread

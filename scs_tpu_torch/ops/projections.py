@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..cones import ConeSpec
+from .dense import _launch
 
 # fixed iteration counts of the scalar iterations (scs_tpu's)
 EXP_NEWTON_ITERS = 40
@@ -84,11 +85,20 @@ def _proj_nonneg(x):
 # ---------------------------------------------------------------------------
 
 
-def _cone_symbol(name, dtype):
-    from . import _kernels  # noqa: PLC0415
+_CONE_FNS = {}  # (name, dtype) -> the C entry point
 
-    lib = _kernels.load("cone_proj")
-    return getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
+
+def _cone_symbol(name, dtype):
+    """The C entry point of csrc/cone_proj.cu for `name` and `dtype`, built,
+    loaded and looked up once."""
+    fn = _CONE_FNS.get((name, dtype))
+    if fn is None:
+        from . import _kernels  # noqa: PLC0415
+
+        lib = _kernels.load("cone_proj")
+        fn = _CONE_FNS[(name, dtype)] = getattr(
+            lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
+    return fn
 
 
 def _check_rows(who, v):
@@ -198,15 +208,9 @@ def _proj_box(v, bl, bu, iters_out=None, cycles_out=None):
     _check_counts("_proj_box", iters_out, B, dev)
     _check_counts("_proj_box", cycles_out, B, dev)
     out = torch.empty_like(v2)
-    fn = _cone_symbol("proj_box", v2.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
+    _launch("proj_box", dev, _cone_symbol("proj_box", v2.dtype),
             v2.data_ptr(), bl.data_ptr(), bu.data_ptr(), out.data_ptr(),
-            _ptr(iters_out), _ptr(cycles_out), B, nb, nb if per_row else 0, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"proj_box kernel launch failed: cudaError {rc}")
+            _ptr(iters_out), _ptr(cycles_out), B, nb, nb if per_row else 0)
     _proj_box.launches += 1
     return out[0] if v.dim() == 1 else out
 
@@ -561,15 +565,9 @@ def _proj_exp_batch(v, sign=None, evals_out=None, steps_out=None, cycles_out=Non
     for counts in (evals_out, steps_out, cycles_out):
         _check_counts("_proj_exp_batch", counts, k, dev)
     out = torch.empty_like(v)
-    fn = _cone_symbol("proj_exp", v.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
+    _launch("proj_exp", dev, _cone_symbol("proj_exp", v.dtype),
             v.data_ptr(), _ptr(sign), out.data_ptr(), _ptr(evals_out), _ptr(steps_out),
-            _ptr(cycles_out), k, exp_group(k), _explim(v), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"proj_exp kernel launch failed: cudaError {rc}")
+            _ptr(cycles_out), k, exp_group(k), _explim(v))
     _proj_exp_batch.launches += 1
     return out
 
@@ -583,51 +581,69 @@ _proj_exp_batch.launches = 0  # kernel launches since the last reset
 # ---------------------------------------------------------------------------
 
 
+def _pow_calc_x(r, xh, aa, rh):
+    """x (or y) on the power cone's boundary curve at |z| = r."""
+    return torch.clamp_min(0.5 * (xh + torch.sqrt(xh * xh + 4.0 * aa * (rh - r) * r)), 1e-12)
+
+
+def _pow_safe_pow(base, e):
+    return torch.exp(e * torch.log(torch.clamp_min(base, _tiny(base))))
+
+
+def _pow_newton_step(r, x0, y0, a, rh):
+    """One safeguarded Newton step on r of the power-cone projection: a
+    function of r alone (x0, y0, a and rh = |z0| are fixed per row), so the
+    iteration's iterates repeat for good once one repeats. A row with
+    |f| < 1e-12 keeps its r: a fixed point."""
+    b = 1 - a
+    x = _pow_calc_x(r, x0, a, rh)
+    y = _pow_calc_x(r, y0, b, rh)
+    xy = _pow_safe_pow(x, a) * _pow_safe_pow(y, b)
+    f = xy - r
+    dxdr = a * (rh - 2.0 * r) / (2.0 * x - x0)
+    dydr = b * (rh - 2.0 * r) / (2.0 * y - y0)
+    fp = xy * (a * dxdr / x + b * dydr / y) - 1.0
+    # A step past an end of [0, rh] goes half way to that end and not onto
+    # it. (scs_tpu clips onto the end. At r = rh, x or y sits on its 1e-12
+    # floor, fp is ~1e9 and the next steps are ~1e-9: f64 crawls back in a
+    # dozen steps, f32 cannot represent the step and stays on r = rh for
+    # good, which is no projection; batches with a hundred power cones a
+    # problem then never converge in f32.)
+    step = r - f / fp
+    r_new = torch.where(step > rh, 0.5 * (r + rh), torch.where(step < 0, 0.5 * r, step))
+    return torch.where(torch.abs(f) < 1e-12, r, r_new)
+
+
+def _pow_cases(v, a):
+    """The rows of v (k, 3) inside K_a and inside its polar cone: those the
+    projection returns without a Newton step."""
+    x0, y0, z0 = v[:, 0], v[:, 1], v[:, 2]
+    b = 1 - a
+    in_cone = (x0 >= 0) & (y0 >= 0) & (
+        _pow_safe_pow(x0, a) * _pow_safe_pow(y0, b) >= torch.abs(z0))
+    in_polar = (
+        (x0 <= 0) & (y0 <= 0)
+        & (_pow_safe_pow(-x0 / a, a) * _pow_safe_pow(-y0 / b, b) >= torch.abs(z0))
+    )
+    return in_cone, in_polar
+
+
 def _proj_pow_batch_ref(v, a, n_iters=POW_NEWTON_ITERS):
     """v: (k, 3), a: (k,) power parameters in (0, 1) — the plain version:
     scs_tpu's operations in scs_tpu's order, but for the Newton step's
-    safeguard (below)."""
+    safeguard (_pow_newton_step)."""
     x0, y0, z0 = v[:, 0], v[:, 1], v[:, 2]
-    tiny = _tiny(v)
     b = 1 - a
-
-    def safe_pow(base, e):
-        return torch.exp(e * torch.log(torch.clamp_min(base, tiny)))
-
-    in_cone = (x0 >= 0) & (y0 >= 0) & (safe_pow(x0, a) * safe_pow(y0, b) >= torch.abs(z0))
-    in_polar = (
-        (x0 <= 0) & (y0 <= 0)
-        & (safe_pow(-x0 / a, a) * safe_pow(-y0 / b, b) >= torch.abs(z0))
-    )
-
+    in_cone, in_polar = _pow_cases(v, a)
     rh = torch.abs(z0)
-
-    def calc_x(r, xh, aa):
-        return torch.clamp_min(0.5 * (xh + torch.sqrt(xh * xh + 4.0 * aa * (rh - r) * r)), 1e-12)
-
     r = rh / 2.0
     for _ in range(n_iters):
-        x = calc_x(r, x0, a)
-        y = calc_x(r, y0, b)
-        xy = safe_pow(x, a) * safe_pow(y, b)
-        f = xy - r
-        dxdr = a * (rh - 2.0 * r) / (2.0 * x - x0)
-        dydr = b * (rh - 2.0 * r) / (2.0 * y - y0)
-        fp = xy * (a * dxdr / x + b * dydr / y) - 1.0
-        # A step past an end of [0, rh] goes half way to that end and not
-        # onto it. (scs_tpu clips onto the end. At r = rh, x or y sits on
-        # its 1e-12 floor, fp is ~1e9 and the next steps are ~1e-9: f64
-        # crawls back in a dozen steps, f32 cannot represent the step and
-        # stays on r = rh for good, which is no projection; batches with a
-        # hundred power cones a problem then never converge in f32.)
-        step = r - f / fp
-        r_new = torch.where(step > rh, 0.5 * (r + rh), torch.where(step < 0, 0.5 * r, step))
-        r_new = torch.where(torch.abs(f) < 1e-12, r, r_new)
+        r_new = _pow_newton_step(r, x0, y0, a, rh)
         if torch.equal(r_new, r):  # a fixed point: every later step repeats it
             break
         r = r_new
-    x = calc_x(r, x0, a)
-    y = calc_x(r, y0, b)
+    x = _pow_calc_x(r, x0, a, rh)
+    y = _pow_calc_x(r, y0, b, rh)
     z = torch.sign(z0) * r
     out = torch.stack([x, y, z], dim=1)
     out = _where_rows(in_polar, torch.zeros((), dtype=v.dtype, device=v.device), out)
@@ -656,15 +672,8 @@ def _proj_pow_batch(v, a, sign=None, iters_out=None):
         sign = sign.contiguous()
     _check_counts("_proj_pow_batch", iters_out, k, dev)
     out = torch.empty_like(v)
-    fn = _cone_symbol("proj_pow", v.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            v.data_ptr(), a.data_ptr(), _ptr(sign), out.data_ptr(), _ptr(iters_out),
-            k, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"proj_pow kernel launch failed: cudaError {rc}")
+    _launch("proj_pow", dev, _cone_symbol("proj_pow", v.dtype),
+            v.data_ptr(), a.data_ptr(), _ptr(sign), out.data_ptr(), _ptr(iters_out), k)
     _proj_pow_batch.launches += 1
     return out
 

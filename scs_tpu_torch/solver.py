@@ -1145,29 +1145,43 @@ class Core:
         """Measured per-call cost of each solver phase, in seconds:
         dict(lin_sys=, cone=, accel_trial=), averaged over `states`
         (callers pass [initial, final] so the state-dependent CG cost is
-        sampled at both ends of the tolerance schedule). Each call is
-        timed to a device synchronize."""
+        sampled at both ends of the tolerance schedule). The phases are
+        timed in the instrumented loop's sequence (phase_timing="always"):
+        from each state, one round to warm up, then 5 rounds of the
+        linear step, the cone step and the iteration tail, each timed to a
+        device synchronize, then a check and the probe's read. The tail
+        runs from the state altered to fire the AA trial (its time is
+        accel_trial) and to leave the scale alone in the check. A phase timed
+        alone, back to back, reads less host time than it takes in the loop,
+        where it follows the other phases and a check (tools/timer_proto.py
+        prints both estimates on the same states)."""
         if self._phase_cache is not None:
             return self._phase_cache
         if isinstance(states, State):
             states = [states]
+        pc = time.perf_counter
+        rounds = 5
 
-        def time5(call):
-            return mean_call_time(call, self._sync)
+        def timed(phase, *args):
+            ts = pc()
+            out = phase(*args)
+            self._sync()
+            return out, pc() - ts
 
-        t_lin = t_cone = t_accel = 0.0
+        total = np.zeros(3)
         for st in states:
-            lin_out = self._step_lin(st, mats)
-            t_lin += time5(lambda: self._step_lin(st, mats))
-            t_cone += time5(lambda: self._step_cone(st, *lin_out, mats))
-            if self.lookback > 0:
-                std = self._doctored_trial_state(st)
-                st1 = self._step_cone(std, *self._step_lin(std, mats), mats)
-                t_accel += time5(lambda: self._iter_tail(std, st1, mats))
-        k = len(states)
+            trial = self._doctored_trial_state(st)._replace(since_rescale=-(1 << 62))
+            for r in range(rounds + 1):
+                lin, t_lin = timed(self._step_lin, st, mats)
+                st1, t_cone = timed(self._step_cone, st, *lin, mats)
+                tail, t_tail = timed(self._iter_tail, trial, st1, mats)
+                self._probe(self._check(tail, mats))
+                if r:
+                    total += (t_lin, t_cone, t_tail)
+        lin_sys, cone, accel = (float(t) for t in total / (len(states) * rounds))
         self._phase_cache = {
-            "lin_sys": t_lin / k,
-            "cone": t_cone / k,
-            "accel_trial": t_accel / k,
+            "lin_sys": lin_sys,
+            "cone": cone,
+            "accel_trial": accel if self.lookback > 0 else 0.0,
         }
         return self._phase_cache

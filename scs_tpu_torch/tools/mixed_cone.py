@@ -253,22 +253,25 @@ class _Recorder:
 
 
 class CaptureRows:
-    """The rows a solve hands the proj_exp and proj_box kernels: inside
-    `with CaptureRows(every) as cap:`, every `every`-th call of each wrapper
-    is copied (cap.exp: (call, v, sign); cap.box: (call, v, bl, bu); tensors
-    on the call's device). The projector looks the wrappers up in
-    ops.projections at every call, so they are replaced there for the
-    block; the copies launch no kernel of theirs, and the launch counters
-    count as before."""
+    """The rows a solve hands the proj_exp, proj_pow and proj_box kernels:
+    inside `with CaptureRows(every) as cap:`, every `every`-th call of each
+    wrapper is copied (cap.exp: (call, v, sign); cap.pow: (call, v, a,
+    sign); cap.box: (call, v, bl, bu); tensors on the call's device). The
+    projector looks the wrappers up in ops.projections at every call, so
+    they are replaced there for the block; the copies launch no kernel of
+    theirs, and the launch counters count as before."""
+
+    KINDS = {"exp": ("_proj_exp_batch", 2), "pow": ("_proj_pow_batch", 3),
+             "box": ("_proj_box", 3)}  # kind: (wrapper, tensors copied)
 
     def __init__(self, every=50):
-        self.every, self.exp, self.box = every, [], []
+        self.every, self.exp, self.pow, self.box = every, [], [], []
 
     def __enter__(self):
         from ..ops import projections as pr  # noqa: PLC0415
 
-        self._saved = pr._proj_exp_batch, pr._proj_box
-        calls = {"exp": 0, "box": 0}
+        self._saved = {kind: getattr(pr, name) for kind, (name, _) in self.KINDS.items()}
+        calls = dict.fromkeys(self.KINDS, 0)
 
         def keeper(kind, n):
             def keep(*tensors):
@@ -279,20 +282,21 @@ class CaptureRows:
 
             return keep
 
-        pr._proj_exp_batch = _Recorder(self._saved[0], keeper("exp", 2))
-        pr._proj_box = _Recorder(self._saved[1], keeper("box", 3))
+        for kind, (name, n) in self.KINDS.items():
+            setattr(pr, name, _Recorder(self._saved[kind], keeper(kind, n)))
         return self
 
     def __exit__(self, *exc):
         from ..ops import projections as pr  # noqa: PLC0415
 
-        pr._proj_exp_batch, pr._proj_box = self._saved
+        for kind, (name, _) in self.KINDS.items():
+            setattr(pr, name, self._saved[kind])
 
     def phases(self, kind):
         """{"early", "middle", "late"}: the second, the middle and the last
-        copy of `kind` ("exp" or "box"; the first call projects the solver's
-        starting point); and for each row count none of those has (a
-        bucket the batch was compacted to), "bucket": the middle copy at
+        copy of `kind` ("exp", "pow" or "box"; the first call projects the
+        solver's starting point); and for each row count none of those has
+        (a bucket the batch was compacted to), "bucket": the middle copy at
         that count."""
         snaps = getattr(self, kind)
         if not snaps:
@@ -310,7 +314,8 @@ class CaptureRows:
 
     def inputs(self, tag):
         """The early, middle and late copies as check_cone_kernels' inputs
-        (numpy float64), labelled with `tag`, the call and the shape."""
+        (numpy float64), labelled with `tag`, the call and the shape:
+        (exp_inputs, box_inputs, pow_inputs)."""
         as_np = lambda t: None if t is None else t.double().cpu().numpy()  # noqa: E731
         exp = [
             (f"{tag} {ph}, call {c}, {tuple(v.shape)}", as_np(v), as_np(sign))
@@ -321,7 +326,11 @@ class CaptureRows:
              f"bounds", as_np(v.reshape(-1, v.shape[-1])), as_np(bl), as_np(bu))
             for ph, (c, v, bl, bu) in self.phases("box").items()
         ]
-        return exp, box
+        pow_ = [
+            (f"{tag} {ph}, call {c}, {tuple(v.shape)}", as_np(v), as_np(a), as_np(sign))
+            for ph, (c, v, a, sign) in self.phases("pow").items()
+        ]
+        return exp, box, pow_
 
 
 # ---------------------------------------------------------------------------
@@ -434,10 +443,48 @@ STRAY_TOL = {torch.float32: 5e-2, torch.float64: 1e-6}
 # |<p, p - v>| / (1 + |v|)^2 of the kernel's answer, in f64 on the host
 INNER_TOL = {torch.float32: 5e-3, torch.float64: 1e-8}
 # operations per pass, counted from the plain versions' arithmetic lines
-# (a log, exp, sqrt or division as one operation each)
+# (a log, exp, sqrt or division as one operation each). POW_OPS_PER_NEWTON:
+# ops.projections._pow_newton_step as written, each add, subtract,
+# multiply, divide, max, abs, sqrt, log and exp one operation, no compare
+# or select: for each half (x, y) _pow_calc_x 10, dxdr 6, the safe power
+# 4, a dxdr / x 2; then xy, f, |f|, the sum of the halves, fp (2), f / fp
+# and r - f / fp
 EXP_OPS_PER_NEWTON, EXP_OPS_PER_SOLVE = 14, 12
-POW_OPS_PER_NEWTON = 45
+POW_OPS_PER_NEWTON = 52
 BOX_OPS_PER_ELEMENT = 12
+
+
+def pow_repeat_steps(v, a, sign=None):
+    """Per row of a power-cone projection (the rows after the dual's sign),
+    the Newton steps its exact answer needs on the plain version's map
+    (ops.projections._pow_newton_step, a function of r alone) and the
+    period it ends on: none for a row inside the cone or its polar cone
+    (period 0); else the first step i whose r_i repeats an earlier iterate
+    r_(i-p), after which the 40-step count's point is known (p = 1 a fixed
+    point, p >= 2 a cycle); all 40 where nothing repeats (period 0).
+    Returns (steps, period), int64 (k,) tensors on v's device."""
+    from ..ops import projections as pr  # noqa: PLC0415
+
+    w = v if sign is None else v * sign[:, None]
+    in_cone, in_polar = pr._pow_cases(w, a)
+    n = pr.POW_NEWTON_ITERS
+    rh = w[:, 2].abs()
+    its = torch.empty((n + 1,) + rh.shape, dtype=rh.dtype, device=rh.device)
+    its[0] = rh / 2.0
+    for i in range(n):
+        its[i + 1] = pr._pow_newton_step(its[i], w[:, 0], w[:, 1], a, rh)
+    newton = ~(in_cone | in_polar)
+    steps = torch.where(newton, n, 0)
+    period = torch.zeros_like(steps)
+    live = newton.clone()
+    for i in range(1, n + 1):
+        # the latest earlier iterate equal to r_i: the smallest period
+        j = torch.arange(i, device=rh.device)[:, None]
+        last = torch.where(its[:i] == its[i], j, -1).amax(0)
+        hit = live & (last >= 0)
+        steps, period = torch.where(hit, i, steps), torch.where(hit, i - last, period)
+        live &= ~hit
+    return steps, period
 
 
 def _time_ms(fn, reps=10):
@@ -495,7 +542,7 @@ REPORT_AT = {"proj_exp": 38400, "proj_pow": 12800, "proj_box": (128, 400, True)}
 
 def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_sizes=POW_SIZES,
                        box_cases=BOX_CASES, report_at=None, geometry_rows=2100, plain_reps=2,
-                       log=print, exp_inputs=(), box_inputs=(),
+                       log=print, exp_inputs=(), box_inputs=(), pow_inputs=(),
                        dtypes=(torch.float32, torch.float64)):
     """proj_exp, proj_pow and proj_box against their plain versions on the
     card, f32 and f64: the row-wise limit KERNEL_TOL, a bit-equal repeat,
@@ -507,15 +554,18 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
     projection), CUDA-event times of kernel and plain
     version, and the bound from the passes this run's data needed. Beside
     the synthetic sizes, given inputs: `exp_inputs` (label, v (k, 3), sign
-    (k,) or None) and `box_inputs` (label, v (B, nb + 1), bl, bu), numpy
-    float64, such as the rows a solve handed the kernels (CaptureRows).
-    Returns {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    (k,) or None), `pow_inputs` (label, v (k, 3), a (k,), sign (k,) or
+    None) and `box_inputs` (label, v (B, nb + 1), bl, bu), numpy float64,
+    such as the rows a solve handed the kernels (CaptureRows). Returns
+    {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
     "bound_steps_ms", "shape"}} in f32 at the sizes of `report_at` (default
     REPORT_AT, the wide batch's shapes). bound_ms counts the plain
-    algorithm's passes (for proj_exp its solves at 40 Newton steps each);
-    bound_steps_ms the Newton steps the kernel ran, its exits at fixed
-    points and cycles taken (proj_pow and proj_box count those in
-    bound_ms already)."""
+    algorithm's passes (proj_exp: its solves at 40 Newton steps each;
+    proj_pow: the steps each row needs to its first repeat on the plain
+    map, pow_repeat_steps, and "bound_fixed_ms" beside it at 40 steps on
+    every row outside the cone and its polar); bound_steps_ms the Newton
+    steps the kernel ran, its exits at fixed points and cycles taken
+    (proj_box counts those in bound_ms already)."""
     report_at = REPORT_AT if report_at is None else report_at
     from ..ops import projections as pr  # noqa: PLC0415
 
@@ -533,7 +583,7 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
         return int((bad_k & ~bad_p).sum()), int((bad_k & bad_p).sum()), worst
 
     def finish(name, label, dtype, v, out_k, out_p, geo, k_ms, p_ms, bound, passes, key,
-               bound_steps=None):
+               bound_steps=None, extra=None):
         bad, bad_both, worst = geo
         rows = _row_err(out_k, out_p, v)
         err, n_stray = float(rows.max()), int((rows > KERNEL_TOL[dtype]).sum())
@@ -569,6 +619,7 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
             report[name] = {
                 "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "bound_steps_ms": bound_steps[0], "shape": label,
+                **(extra or {}),
             }
 
     def run_exp(label, v_np, sign_np, dtype, geo_tol, key):
@@ -600,6 +651,45 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
             f"{int(evals.max())} a row, {n_steps} Newton steps, {int(cycles.sum())} solves "
             f"left on a cycle",
             key, _bound_ms(k * 7 * item, ops_run, dtype, hbm_bytes_per_s, peak_flops),
+        )
+
+    def run_pow(label, v_np, a_np, sign_np, dtype, geo_tol, key):
+        k = len(v_np)
+        sub = slice(0, min(k, geometry_rows))
+        v = torch.as_tensor(v_np, dtype=dtype, device=dev)
+        a = torch.as_tensor(a_np, dtype=dtype, device=dev)
+        sign = None if sign_np is None else torch.as_tensor(sign_np, dtype=dtype, device=dev)
+        iters = torch.zeros(k, dtype=torch.int32, device=dev)
+        out_k = pr._proj_pow_batch(v, a, sign, iters)
+        if not torch.equal(out_k, pr._proj_pow_batch(v, a, sign)):
+            raise AssertionError(f"proj_pow {label} {dtype}: a repeated launch differs")
+        plain = lambda: pr._signed(lambda w: pr._proj_pow_batch_ref(w, a), v, sign)  # noqa: E731
+        out_p = plain()
+        torch.cuda.synchronize()
+        geo = both(
+            lambda p: geometry_pow(v[sub].double().cpu().numpy(), p, a[sub].double().cpu().numpy(),
+                                   None if sign_np is None else sign_np[sub], tol=geo_tol,
+                                   inner_tol=INNER_TOL[dtype]),
+            out_k, out_p, sub,
+        )
+        need, period = pow_repeat_steps(v, a, sign)
+        n_newton, n_need = int((need > 0).sum()), int(need.sum())
+        n_steps, n_cycles = int(iters.sum()), int((period >= 2).sum())
+        nbytes = k * 8 * item
+        fixed = _bound_ms(nbytes, n_newton * pr.POW_NEWTON_ITERS * POW_OPS_PER_NEWTON, dtype,
+                          hbm_bytes_per_s, peak_flops)
+        finish(
+            "proj_pow", label, dtype, v, out_k, out_p, geo,
+            _time_ms(lambda: pr._proj_pow_batch(v, a, sign)), _time_ms(plain, plain_reps),
+            _bound_ms(nbytes, n_need * POW_OPS_PER_NEWTON, dtype, hbm_bytes_per_s, peak_flops),
+            f"{n_newton} rows need Newton, {n_need} steps to their first repeat on the plain map "
+            f"({n_cycles} rows end on a cycle); the kernel ran {n_steps} steps, at most "
+            f"{int(iters.max())} a row; at the fixed count of {pr.POW_NEWTON_ITERS} the bound "
+            f"would be {fixed[0]:.6f} ms by {fixed[1]}",
+            key, _bound_ms(nbytes, n_steps * POW_OPS_PER_NEWTON, dtype, hbm_bytes_per_s,
+                           peak_flops),
+            {"bound_fixed_ms": fixed[0], "cycles": n_cycles, "repeat_steps": n_need,
+             "newton_steps": n_steps, "rows_newton": n_newton},
         )
 
     def run_box(label, v_np, bl_np, bu_np, dtype, geo_tol, key):
@@ -656,34 +746,11 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
         for label, v_np, sign_np in exp_inputs:
             run_exp(label, v_np, sign_np, dtype, geo_tol, False)
         for k in pow_sizes:
-            sub = slice(0, min(k, geometry_rows))
             v_np, a_np, sign_np = pow_rows(k, seed=k % 1000 + 1)
-            v = torch.as_tensor(v_np, dtype=dtype, device=dev)
-            a = torch.as_tensor(a_np, dtype=dtype, device=dev)
-            sign = torch.as_tensor(sign_np, dtype=dtype, device=dev)
-            iters = torch.zeros(k, dtype=torch.int32, device=dev)
-            out_k = pr._proj_pow_batch(v, a, sign, iters_out=iters)
-            if not torch.equal(out_k, pr._proj_pow_batch(v, a, sign)):
-                raise AssertionError(f"proj_pow k={k} {dtype}: a repeated launch differs")
-            plain = lambda: pr._signed(lambda w: pr._proj_pow_batch_ref(w, a), v, sign)  # noqa: E731
-            out_p = plain()
-            torch.cuda.synchronize()
-            geo = both(
-                lambda p: geometry_pow(
-                    v[sub].double().cpu().numpy(), p, a[sub].double().cpu().numpy(),
-                    sign_np[sub], tol=geo_tol, inner_tol=INNER_TOL[dtype],
-                ),
-                out_k, out_p, sub,
-            )
-            n_steps = int(iters.sum())
-            finish(
-                "proj_pow", f"(k={k}, 3)", dtype, v, out_k, out_p, geo,
-                _time_ms(lambda: pr._proj_pow_batch(v, a, sign)), _time_ms(plain, plain_reps),
-                _bound_ms(k * 8 * item, n_steps * POW_OPS_PER_NEWTON, dtype,
-                          hbm_bytes_per_s, peak_flops),
-                f"{n_steps} Newton steps in all, at most {int(iters.max())} a row",
-                k == report_at["proj_pow"] and f32,
-            )
+            run_pow(f"(k={k}, 3)", v_np, a_np, sign_np, dtype, geo_tol,
+                    k == report_at["proj_pow"] and f32)
+        for label, v_np, a_np, sign_np in pow_inputs:
+            run_pow(label, v_np, a_np, sign_np, dtype, geo_tol, False)
         # box cone: one problem, and a batch under shared and per-row bounds
         for B, nb, per_row in box_cases:
             v_np, bl_np, bu_np = box_case(B, nb, seed=B + per_row, per_row=per_row)

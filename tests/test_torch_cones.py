@@ -344,6 +344,131 @@ def test_exp_newton_cycles_of_any_period_end_where_the_fixed_count_does(dtype):
         assert np.mean([i + 1 if p else 40 for i, p, _ in exits]) < 15
 
 
+def _proj_pow_batch_ref_before(v, a, n_iters=tpr.POW_NEWTON_ITERS):
+    """_proj_pow_batch_ref as it was written before its Newton step became
+    tpr._pow_newton_step, line for line."""
+    x0, y0, z0 = v[:, 0], v[:, 1], v[:, 2]
+    tiny = tpr._tiny(v)
+    b = 1 - a
+
+    def safe_pow(base, e):
+        return torch.exp(e * torch.log(torch.clamp_min(base, tiny)))
+
+    in_cone = (x0 >= 0) & (y0 >= 0) & (safe_pow(x0, a) * safe_pow(y0, b) >= torch.abs(z0))
+    in_polar = (
+        (x0 <= 0) & (y0 <= 0)
+        & (safe_pow(-x0 / a, a) * safe_pow(-y0 / b, b) >= torch.abs(z0))
+    )
+    rh = torch.abs(z0)
+
+    def calc_x(r, xh, aa):
+        return torch.clamp_min(0.5 * (xh + torch.sqrt(xh * xh + 4.0 * aa * (rh - r) * r)), 1e-12)
+
+    r = rh / 2.0
+    for _ in range(n_iters):
+        x = calc_x(r, x0, a)
+        y = calc_x(r, y0, b)
+        xy = safe_pow(x, a) * safe_pow(y, b)
+        f = xy - r
+        dxdr = a * (rh - 2.0 * r) / (2.0 * x - x0)
+        dydr = b * (rh - 2.0 * r) / (2.0 * y - y0)
+        fp = xy * (a * dxdr / x + b * dydr / y) - 1.0
+        step = r - f / fp
+        r_new = torch.where(step > rh, 0.5 * (r + rh), torch.where(step < 0, 0.5 * r, step))
+        r_new = torch.where(torch.abs(f) < 1e-12, r, r_new)
+        if torch.equal(r_new, r):
+            break
+        r = r_new
+    out = torch.stack([calc_x(r, x0, a), calc_x(r, y0, b), torch.sign(z0) * r], dim=1)
+    out = tpr._where_rows(in_polar, torch.zeros((), dtype=v.dtype), out)
+    return tpr._where_rows(in_cone, v, out)
+
+
+def _pow_iterates(tdt, k, seed):
+    """r_0 .. r_40 of the power cone's Newton map (tpr._pow_newton_step) on
+    mc.pow_rows(k, seed), the dual rows negated as the wrapper hands them
+    on: (41, k)."""
+    v, a, sign = mc.pow_rows(k, seed=seed)
+    v, a = _t(v * sign[:, None], tdt), _t(a, tdt)
+    rh = v[:, 2].abs()
+    r = rh / 2.0
+    iterates = [r]
+    for _ in range(tpr.POW_NEWTON_ITERS):
+        r = tpr._pow_newton_step(r, v[:, 0], v[:, 1], a, rh)
+        iterates.append(r)
+    return np.stack([t.numpy() for t in iterates])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_pow_newton_step_is_the_plain_versions_step(dtype):
+    """The factored step leaves _proj_pow_batch_ref's answers bit for bit
+    as they were, at the fixed count and short of it, and iterating it
+    gives the r the plain version ends on."""
+    _, tdt = DTYPES[dtype]
+    v, a, sign = mc.pow_rows(500, seed=2)
+    tv, ta = _t(v * sign[:, None], tdt), _t(a, tdt)
+    for n in (1, 7, tpr.POW_NEWTON_ITERS):
+        np.testing.assert_array_equal(tpr._proj_pow_batch_ref(tv, ta, n_iters=n).numpy(),
+                                      _proj_pow_batch_ref_before(tv, ta, n_iters=n).numpy())
+    iterates = _pow_iterates(tdt, 500, seed=2)
+    out = tpr._proj_pow_batch_ref(tv, ta).numpy()
+    moved = ~(out == tv.numpy()).all(1) & ~(out == 0).all(1)
+    assert moved.sum() >= 150
+    np.testing.assert_array_equal(np.abs(out[moved, 2]), iterates[-1][moved])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_pow_newton_two_cycle_ends_on_the_parity_point(dtype):
+    _, tdt = DTYPES[dtype]
+    iterates = _pow_iterates(tdt, 20000, seed=0)
+    rows = (iterates[38] == iterates[40]) & (iterates[38] != iterates[39])
+    assert rows.sum() >= (500 if dtype == "f32" else 50)
+    ks, points = _parity_points(iterates[:, rows], tpr.POW_NEWTON_ITERS)
+    np.testing.assert_array_equal(points, iterates[40][rows])
+    assert ks.min() < 10  # many cycles start early: the steps an exit saves
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_pow_newton_cycles_of_any_period_end_where_the_fixed_count_does(dtype):
+    _, tdt = DTYPES[dtype]
+    iterates = _pow_iterates(tdt, 20000, seed=5)
+    # newton_fixed_count's exits, with the cycle tests from the first step
+    # and from the fourth on (as proj_exp runs them)
+    for plain_steps in (0, 4):
+        exits = _exit_points(iterates, tpr.POW_NEWTON_ITERS, plain_steps)
+        np.testing.assert_array_equal([pt for *_, pt in exits], iterates[-1])
+        periods = np.array([p for _, p, _ in exits])
+        assert (periods >= 3).sum() >= (300 if dtype == "f32" else 30)
+        assert (periods == 2).sum() >= (1000 if dtype == "f32" else 50)
+        # the exits leave the rows within half the fixed count on average
+        assert np.mean([i + 1 if p else 40 for i, p, _ in exits]) < 20
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_pow_repeat_steps_find_each_rows_first_repeat(dtype):
+    """mc.pow_repeat_steps, the count of proj_pow's bound: per row the
+    first step whose r repeats an earlier one, at the smallest period, and
+    the 40-step count's point known from there."""
+    _, tdt = DTYPES[dtype]
+    v, a, sign = mc.pow_rows(2000, seed=4)
+    steps, period = (t.numpy() for t in mc.pow_repeat_steps(_t(v, tdt), _t(a, tdt), _t(sign, tdt)))
+    iterates = _pow_iterates(tdt, 2000, seed=4)
+    in_cone, in_polar = tpr._pow_cases(_t(v * sign[:, None], tdt), _t(a, tdt))
+    newton = ~(in_cone | in_polar).numpy()
+    assert (steps[~newton] == 0).all() and (period[~newton] == 0).all()
+    n = tpr.POW_NEWTON_ITERS
+    for j in np.flatnonzero(newton):
+        col = iterates[:, j]
+        first = next(((i, i - q) for i in range(1, n + 1) for q in reversed(range(i))
+                      if col[i] == col[q]), (n, 0))
+        assert (steps[j], period[j]) == first
+        if period[j]:
+            i, p = first
+            assert col[n] == col[i - p + (n - i) % p]
+    assert (period == 1).sum() >= 300
+    assert (period >= 2).sum() >= (100 if dtype == "f32" else 5)
+
+
 def test_exp_group_fills_the_card():
     """proj_exp's lanes a cone: the largest G of EXP_GROUPS whose
     threads stay within EXP_FILL_THREADS, one lane when none does."""
@@ -356,31 +481,39 @@ def test_exp_group_fills_the_card():
 
 
 def test_capture_rows_copies_every_nth_call_and_puts_the_wrappers_back():
-    K = {"z": 2, "l": 6, "bu": [1.0, np.inf, 2.0], "bl": [-1.0, 0.0, -np.inf], "ep": 2, "ed": 1}
+    K = {"z": 2, "l": 6, "bu": [1.0, np.inf, 2.0], "bl": [-1.0, 0.0, -np.inf], "ep": 2, "ed": 1,
+         "p": [0.3, -0.6]}
     data, _ = _mixed_batch(2, K)
-    exp_fn, box_fn = tpr._proj_exp_batch, tpr._proj_box
+    wrappers = (tpr._proj_exp_batch, tpr._proj_pow_batch, tpr._proj_box)
     with mc.CaptureRows(every=4) as cap:
         scs_tpu_torch.BatchedSCS(data, K, device="cpu", max_iters=30).solve()
-    assert (tpr._proj_exp_batch, tpr._proj_box) == (exp_fn, box_fn)
+    assert (tpr._proj_exp_batch, tpr._proj_pow_batch, tpr._proj_box) == wrappers
     assert [c for c, *_ in cap.exp] == list(range(0, 4 * len(cap.exp), 4))
-    assert len(cap.exp) == len(cap.box) >= 3
+    assert [c for c, *_ in cap.pow] == [c for c, *_ in cap.exp]
+    assert len(cap.exp) == len(cap.box) == len(cap.pow) >= 3
     c, v, sign = cap.exp[1]
     assert v.shape == (2 * 3, 3) and sign.tolist() == [1.0, 1.0, -1.0] * 2
+    c, v, a, sign = cap.pow[1]
+    assert v.shape == (2 * 2, 3) and sign.tolist() == [1.0, -1.0] * 2
+    np.testing.assert_allclose(a.numpy(), [0.3, 0.6] * 2)
     c, v, bl, bu = cap.box[1]
     assert v.shape == (2, 4) and bl.shape == bu.shape == (2, 3)
     phases = cap.phases("box")
     assert [phases[p][0] for p in ("early", "middle", "late")] == [
         cap.box[1][0], cap.box[len(cap.box) // 2][0], cap.box[-1][0]]
-    exp_in, box_in = cap.inputs("t")
+    exp_in, box_in, pow_in = cap.inputs("t")
     assert [x[0].split(",")[0] for x in exp_in] == ["t early", "t middle", "t late"]
+    assert [x[0].split(",")[0] for x in pow_in] == ["t early", "t middle", "t late"]
     assert all(isinstance(a, np.ndarray) and a.dtype == np.float64 for a in box_in[0][1:])
+    assert all(isinstance(a, np.ndarray) and a.dtype == np.float64 for a in pow_in[0][1:])
     # a wrapper counts its launches through its module name: inside the
     # block that count still lands on the wrapper's own counter
-    before = exp_fn.launches
-    with mc.CaptureRows():
-        tpr._proj_exp_batch.launches += 2
-    assert exp_fn.launches == before + 2
-    exp_fn.launches = before
+    for fn in wrappers:
+        before = fn.launches
+        with mc.CaptureRows():
+            getattr(tpr, fn.__name__).launches += 2
+        assert fn.launches == before + 2
+        fn.launches = before
     # the copies are the rows the projector was handed
     spec = ConeSpec.from_dict(K)
     z = torch.as_tensor(np.random.RandomState(2).randn(2, spec.dim))
@@ -388,6 +521,7 @@ def test_capture_rows_copies_every_nth_call_and_puts_the_wrappers_back():
         tpr.make_cone_projector(spec)(z)
     np.testing.assert_array_equal(cap.box[0][1].numpy(), z[:, 8:12].numpy())  # the box segment
     np.testing.assert_array_equal(cap.exp[0][1].numpy(), z[:, 12:21].reshape(6, 3).numpy())
+    np.testing.assert_array_equal(cap.pow[0][1].numpy(), z[:, 21:27].reshape(4, 3).numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -805,14 +939,29 @@ def _exp_cycling_rows(device, dtype, k=20000):
     return [(f"rows whose solves cycle, G = {tpr.exp_group(len(r))}", r, None) for r in (few, many)]
 
 
+def _pow_cycling_rows(device, dtype, k=20000):
+    """pow_rows whose Newton iteration cycles on the plain version's map
+    (mc.pow_repeat_steps, on the card), alone and repeated over more
+    threads than the card holds at once."""
+    v, a, sign = mc.pow_rows(k, seed=13)
+    _, period = mc.pow_repeat_steps(*(torch.as_tensor(x, dtype=dtype, device=device)
+                                      for x in (v, a, sign)))
+    rows = period.cpu().numpy() >= 2
+    assert rows.sum() >= (100 if dtype == torch.float32 else 10)
+    few = tuple(x[rows] for x in (v, a, sign))
+    many = tuple(np.resize(x, (200_000,) + x.shape[1:]) for x in few)
+    return [(f"rows that cycle, {len(r[0])} of them", *r) for r in (few, many)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kernel", ["exp", "pow", "box", "exp_groups", "exp_cycles", "box_cycles"])
+@pytest.mark.parametrize("kernel", ["exp", "pow", "box", "exp_groups", "exp_cycles", "box_cycles",
+                                    "pow_cycles"])
 def test_cone_kernels_match_plain_on_card(cuda_device, kernel, dtype):
     """check_cone_kernels' gates (agreement to KERNEL_TOL, bit-equal repeat,
     geometry in f64) at small sizes, one kernel at a time; proj_exp also at
     every lanes-per-cone G on cone counts that no G > 1 divides, and the
-    two redesigned kernels on rows whose Newton iterations two-cycle."""
+    three kernels on rows whose Newton iterations cycle."""
     sizes = dict(exp_sizes=(), pow_sizes=(), box_cases=())
     if kernel in ("exp", "pow", "box"):
         sizes[{"exp": "exp_sizes", "pow": "pow_sizes", "box": "box_cases"}[kernel]] = {
@@ -823,6 +972,8 @@ def test_cone_kernels_match_plain_on_card(cuda_device, kernel, dtype):
         sizes["exp_sizes"] = _exp_group_sizes()
     elif kernel == "exp_cycles":
         sizes["exp_inputs"] = _exp_cycling_rows(cuda_device, dtype)
+    elif kernel == "pow_cycles":
+        sizes["pow_inputs"] = _pow_cycling_rows(cuda_device, dtype)
     else:
         v, bl, bu = _box_cycling_rows(dtype)
         sizes["box_inputs"] = [("rows that two-cycle", v, bl, bu)]
@@ -851,6 +1002,13 @@ def test_cone_wrappers_raise_on_card_for_bad_input(cuda_device):
         tpr._proj_pow_batch(v, torch.zeros(3, device=cuda_device))
     with pytest.raises(ValueError):
         tpr._proj_pow_batch(v, torch.zeros(4))  # a on the CPU
+    with pytest.raises(ValueError):
+        tpr._proj_pow_batch(v, torch.zeros(4, device=cuda_device), torch.ones(4))  # sign on the CPU
+    with pytest.raises(ValueError):
+        tpr._proj_pow_batch(v, torch.zeros(4, device=cuda_device),
+                            iters_out=torch.zeros(4, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(TypeError):
+        tpr._proj_pow_batch(v.half(), torch.zeros(4, device=cuda_device).half())
     with pytest.raises(ValueError):
         tpr._proj_box(v, torch.zeros(3, device=cuda_device), torch.zeros(3, device=cuda_device))
     with pytest.raises(ValueError):
