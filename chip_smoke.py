@@ -113,7 +113,19 @@ Phases, one line each; any failure raises and exits nonzero:
      cell with its timers filled and the iteration counts of "auto"; and
      the auto/instrumented ratio of the timers on
      tests/test_observability.py's 900 x 600 QP, gated as that test gates
-     it: 0.8-1.25, or 0.7-1.43 on one retry.
+     it: 0.8-1.25, or 0.7-1.43 on one retry;
+ 14. the sharded paths (scs_tpu_torch.parallel), each world spawned from
+     this process with a time limit, so a deadlock fails the run: (a) the
+     bell LP of phase 4 through ShardedSCS(solver_strategy="bell") at one
+     NCCL rank and (b) at two gloo ranks on the one card (solved, host f64
+     KKT, pobj within 1e-3 of phase 4's, x bit-equal on both ranks, K1
+     carrying every product), then the hi_acc cell's first QP dense at two
+     gloo ranks (G1/G2 on each rank's rows); (c) parallel/dryrun.py's four
+     legs at one NCCL rank (D1 on leg 3). In every world, after its launch
+     counts are read, each rank holds every kernel it launched, at every
+     shape it launched it at, against the plain version on the same inputs
+     (its own packs and rows of A where it has them), one rank at a time,
+     timed beside the plain version and the bound.
 
 Then the whole run's wall time, one JSON line describing the kernels (each
 with its launches on the main path and in phase 12's bench run), and last
@@ -160,6 +172,9 @@ from scs_tpu_torch.ops.sparse import (
     stack_bell_host,
 )
 from scs_tpu_torch.ops import projections as cone_ops
+from scs_tpu_torch.parallel import dryrun
+from scs_tpu_torch.parallel.comm import gather_list
+from scs_tpu_torch.parallel.dryrun import spawn_world
 from scs_tpu_torch.tools import gemv_proto, mixed_cone, timer_proto
 from scs_tpu_torch.tools.flagship import (
     FLAGSHIP,
@@ -631,7 +646,7 @@ def phase_main(bench):
         f"dual {rd:.3f}, gap {rg:.3f} (BENCH_r05 TPU v5e run, reference "
         f"only: {BELL_TPU_ITERS} iterations)"
     )
-    return launches
+    return launches, info["pobj"]
 
 
 def bell_profile(bench, chunks=2, warmup=2):
@@ -1534,6 +1549,310 @@ def phase_instrumented(name_and_limit):
                              f"auto/instrumented {tries}")
 
 
+# Phase 14: the sharded paths (scs_tpu_torch.parallel), each world spawned
+# from this process with a time limit, so a deadlock fails the run
+SHARDED_TIMEOUT = 600.0  # seconds a world may take, its spawn included
+
+
+def _in_turns(fn):
+    """fn() on every rank of the default group, one rank at a time: ranks
+    that share a card must not time their kernels together."""
+    dist = torch.distributed
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def _check_spmv_shape(shape, pack, gen):
+    """K1 at one (nbr, w, bs, len(x)) shape, on `pack` (blocks, cols: a
+    rank's own) or on a random pack of the shape, x random of its true
+    length: within TOL * |A||x| of bell_spmv_ref on the same x, a bit-equal
+    repeat; device ms from CUDA-graph replays beside the plain version's
+    and the bound. No library call computes a block-ELL product."""
+    nbr, w, bs, x_len = shape
+    nbc = -(-x_len // bs)
+    if pack is None:
+        blocks = torch.randn((nbr, w, bs, bs), generator=gen, device="cuda") / (w * bs) ** 0.5
+        cols = torch.randint(0, nbc, (nbr, w), generator=gen, device="cuda", dtype=torch.int32)
+    else:
+        blocks, cols = pack
+    dtype = blocks.dtype
+    x = torch.randn(x_len, generator=gen, device=blocks.device, dtype=dtype)
+    x_pad = torch.nn.functional.pad(x, (0, max(int(cols.max()) + 1, nbc) * bs - x_len))
+    y = bell_spmv(blocks, cols, x)
+    y_again = bell_spmv(blocks, cols, x)
+    err = (y - bell_spmv_ref(blocks, cols, x_pad)).abs()
+    lim = TOL[dtype] * bell_spmv_ref(blocks.abs(), cols, x_pad.abs())
+    if not bool(torch.all(err <= lim)):
+        raise AssertionError(f"bell_spmv {shape}: kernel disagrees with plain version "
+                             f"(excess {float((err - lim).max()):.3e})")
+    if not torch.equal(y, y_again):
+        raise AssertionError(f"bell_spmv {shape}: a repeated launch differs")
+    bound = _spmv_bound((nbr, w, bs, bs), x_len, dtype)
+    return dict(max_abs_err=float(err.max()), tol=f"{TOL[dtype]:g}*|A||x|",
+                ms=time_graph_ms(lambda: bell_spmv(blocks, cols, x)),
+                plain_ms=time_ms(lambda: bell_spmv_ref(blocks, cols, x_pad), inner=SPMV_INNER),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
+def _sharded_checks(own=None):
+    """Phase 14's kernel checks, on a rank after its run's launch counts
+    were read: every kernel the run launched, at every shape it launched it
+    at (the wrappers' `.shapes`, listed before anything else launches),
+    against its plain version on the same inputs — K1 and G1/G2 within
+    TOL, D1 within COMP_REL of the f64 product — with a bit-equal repeat,
+    device ms from CUDA-graph replays beside the plain version's, the bound
+    and, for G1/G2, torch.bmm's. `own` maps (kernel, shape) to the rank's
+    own operands there (its packs, its rows of A, P); other shapes get
+    random ones. Every phase-14 path runs f32. Returns one record per
+    (kernel, shape)."""
+    f32, own = torch.float32, own or {}
+    todo = [(name, shape, n)
+            for name, f in (("bell_spmv", bell_spmv), ("gemv_rows", gemv_rows),
+                            ("gemv_cols", gemv_cols), ("df32.mv", df32.mv), ("df32.tv", df32.tv))
+            for shape, n in sorted(f.shapes.items())]
+    gen = torch.Generator(device="cuda").manual_seed(14) if todo else None
+    recs = []
+    for name, shape, n in todo:
+        mine = own.get((name, shape))
+        if name == "bell_spmv":
+            rec = _check_spmv_shape(shape, mine, gen)
+        elif name.startswith("gemv_"):
+            which = name[5:]
+            r = gemv_proto.check_shape(shape, f32, (which,), gen, plain=True, M=mine)[which]
+            bound = _gemv_bound(shape, shape[1] if which == "rows" else shape[2], f32)
+            rec = dict(max_abs_err=r["max_abs_err"], tol=f"{gemv_proto.TOL[f32]:g}*|M||v|",
+                       ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound[0], bound_by=bound[1],
+                       library_ms=r["bmm_ms"])
+        else:
+            which = "rows" if name == "df32.mv" else "cols"
+            r = gemv_proto.check_comp(shape, (which,), gen)[which]
+            rec = dict(max_abs_err=r["max_abs_err"], rel_err_vs_f64=r["rel_err"],
+                       tol=f"{gemv_proto.COMP_REL:g} of the f64 product", ms=r["ms"],
+                       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                       library_ms=None)
+        recs.append(dict(kernel=name, shape=list(shape), launches=n,
+                         operands="the rank's own" if mine is not None else "random", **rec))
+    return recs
+
+
+def _print_checks(tag, checks_by_rank):
+    """One line per rank, kernel and shape of _sharded_checks' records;
+    returns them flat, each with its world and rank."""
+    flat = []
+    for rank, recs in enumerate(checks_by_rank):
+        for c in recs:
+            lib = "" if c["library_ms"] is None else f", torch.bmm {c['library_ms']:.4f} ms"
+            print(f"{tag} rank {rank}: {c['kernel']} at {tuple(c['shape'])} ({c['operands']} "
+                  f"operands, {c['launches']} launches in the run): max |err| "
+                  f"{c['max_abs_err']:.3e} within {c['tol']}, repeat bit-equal; device "
+                  f"{c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+                  f"{100 * c['bound_ms'] / c['ms']:.0f}%), plain {c['plain_ms']:.4f} ms{lib}")
+            flat.append(dict(c, where=f"{tag[5:]} rank {rank}"))
+    return flat
+
+
+def _sharded_bell_rank(device):
+    """One rank of phase 14 (a)/(b): ShardedSCS under "bell" on the bench's
+    bell LP, K1's launches zeroed just before the solver is built and read
+    just after the solve; the host f64 KKT check on this rank's answer."""
+    from scs_tpu_torch.parallel import ShardedSCS, make_mesh  # noqa: PLC0415
+    from scs_tpu_torch.parallel.mesh import rank_device  # noqa: PLC0415
+
+    bench = gen_bell_lp(BELL_M, BELL_N, BELL_DENSITY)
+    rank_device(device, torch.distributed.group.WORLD)  # this rank's card, before the mesh
+    mesh = make_mesh(axis_name="rows")
+    _zero_counts(bell_spmv, bell_spmv_batched, gemv_rows, gemv_cols)
+    gather_list.calls = 0
+    t0 = time.perf_counter()
+    solver = ShardedSCS(
+        bench, {"l": BELL_M}, mesh=mesh, solver_strategy="bell", bell_block_size=BELL_BS,
+        eps_abs=BELL_EPS, eps_rel=BELL_EPS, max_iters=50000, verbose=False, device=device,
+    )
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    sol = solver.solve()
+    torch.cuda.synchronize()
+    info = sol["info"]
+    out = dict(
+        status=info["status"], iter=info["iter"], cg_iters=solver._last_state.cg_iters,
+        pobj=info["pobj"], x=sol["x"], setup=setup, solve=info["solve_time"],
+        launches=bell_spmv.launches, collectives=gather_list.calls,
+        other=bell_spmv_batched.launches + gemv_rows.launches
+        + gemv_cols.launches, dtype=solver.stg.dtype, device=str(solver.mats.bn.device),
+        pack=tuple(solver.mats.bell.A_blocks.shape), pack_t=tuple(solver.mats.bell.At_blocks.shape),
+        m_pad=solver.m,
+    )
+    if info["status"] == "solved":
+        out["kkt"] = kkt_check(bench, sol, BELL_EPS)
+    bell = solver.mats.bell
+    m_loc = bell.A_blocks.shape[0] * bell.A_blocks.shape[-1]
+    out["checks"] = _in_turns(lambda: _sharded_checks({
+        ("bell_spmv", (*bell.A_blocks.shape[:3], solver.n)): (bell.A_blocks, bell.A_cols),
+        ("bell_spmv", (*bell.At_blocks.shape[:3], m_loc)): (bell.At_blocks, bell.At_cols),
+    }))
+    return out
+
+
+def phase_sharded_bell(world, backend, pobj_ref):
+    """Phase 14 (a) (world 1, NCCL) and (b) (world 2, gloo, both ranks on
+    cuda:0): solved on every rank in f32 with host f64 KKT within 5x the
+    criterion, K1 carrying every product, pobj within 1e-3 of `pobj_ref`
+    (relative), and at world 2 every rank's x bit-equal. Returns rank 0's
+    record with every rank's launches."""
+    device = "cuda" if backend == "nccl" else "cuda:0"
+    t0 = time.perf_counter()
+    res = spawn_world(world, _sharded_bell_rank, (device,), backend=backend,
+                      timeout=SHARDED_TIMEOUT)
+    wall = time.perf_counter() - t0
+    tag = f"[14] sharded bell LP {BELL_M}x{BELL_N}, world {world} ({backend})"
+    for r, rec in enumerate(res):
+        if rec["status"] != "solved" or rec["dtype"] != "float32":
+            raise AssertionError(f"{tag}: rank {r} {rec['status']} ({rec['dtype']}) after "
+                                 f"{rec['iter']} iterations")
+        if rec["launches"] <= 0 or rec["other"]:
+            raise AssertionError(f"{tag}: rank {r} K1 launches {rec['launches']}, other "
+                                 f"matvec kernels {rec['other']}")
+        if pobj_ref is not None and abs(rec["pobj"] - pobj_ref) > 1e-3 * abs(pobj_ref):
+            raise AssertionError(f"{tag}: rank {r} pobj {rec['pobj']} against {pobj_ref}")
+        if not np.array_equal(rec["x"], res[0]["x"]):
+            raise AssertionError(f"{tag}: rank {r}'s x differs from rank 0's")
+    r0 = res[0]
+    checks = _print_checks(tag, [r["checks"] for r in res])
+    print(f"{tag} on {r0['device']}: {r0['status']} in {r0['iter']} iterations, "
+          f"{r0['cg_iters']} CG iterations; K1 launches by rank {[r['launches'] for r in res]}, "
+          f"{r0['collectives']} all_gathers a rank (setup and solve); "
+          f"setup {r0['setup']:.3f} s, solve {r0['solve']:.3f} s, world wall {wall:.1f} s "
+          f"(spawn included); rows padded to {r0['m_pad']}, local packs A {r0['pack']} A' "
+          f"{r0['pack_t']}; pobj {r0['pobj']:.6e}"
+          + ("" if pobj_ref is None else f" (against {pobj_ref:.6e}: "
+             f"{abs(r0['pobj'] - pobj_ref) / abs(pobj_ref):.2e} relative)")
+          + f"; host f64 KKT / limit: pri {r0['kkt'][0]:.3f}, dual {r0['kkt'][1]:.3f}, "
+          f"gap {r0['kkt'][2]:.3f}" + ("; x bit-equal on every rank" if world > 1 else ""))
+    return dict(r0, launches_by_rank=[r["launches"] for r in res], checks=checks)
+
+
+def _sharded_dense_rank(A, P, b, c, device):
+    """One rank of phase 14 (b)'s dense QP: ShardedSCS under "indirect",
+    G1/G2 counted from just before the solver is built."""
+    from scs_tpu_torch.parallel import ShardedSCS  # noqa: PLC0415
+
+    _zero_counts(gemv_rows, gemv_cols, df32.mv, df32.tv, bell_spmv)
+    gather_list.calls = 0
+    t0 = time.perf_counter()
+    solver = ShardedSCS(
+        {"A": A, "P": P, "b": b, "c": c}, {"l": A.shape[0]}, allow_dense_input=True,
+        eps_abs=1e-4, eps_rel=1e-4, dtype="float32", max_iters=50000, verbose=False,
+        device=device,
+    )
+    sol = solver.solve()
+    torch.cuda.synchronize()
+    out = dict(status=sol["info"]["status"], iter=sol["info"]["iter"], pobj=sol["info"]["pobj"],
+               x=sol["x"], secs=time.perf_counter() - t0, rows=tuple(solver.mats.A.shape),
+               g1=gemv_rows.launches, g2=gemv_cols.launches, spmv=bell_spmv.launches,
+               g1_shapes=dict(gemv_rows.shapes), collectives=gather_list.calls)
+    A3, P3 = solver.mats.A[None], solver.mats.P[None]
+    out["checks"] = _in_turns(lambda: _sharded_checks({
+        ("gemv_rows", tuple(A3.shape)): A3, ("gemv_cols", tuple(A3.shape)): A3,
+        ("gemv_rows", tuple(P3.shape)): P3,
+    }))
+    return out
+
+
+def phase_sharded_dense(world):
+    """Phase 14 (b), dense: the hi_acc cell's first QP (1500 x 1000, seed
+    4321) over `world` gloo ranks on cuda:0, f32 eps 1e-4: solved, pobj
+    within 1e-3 of the planted optimum (relative to 1 + |p*|), each rank
+    holding its rows of A and launching G1 and G2."""
+    A, P, b, c, p_star = gen_batch(HI_B, HI_M, HI_N, seed=HI_SEED, return_opt=True)
+    args = (A[0], P[0], b[0], c[0], "cuda:0")
+    del A, P, b, c
+    t0 = time.perf_counter()
+    res = spawn_world(world, _sharded_dense_rank, args, backend="gloo", timeout=SHARDED_TIMEOUT)
+    wall = time.perf_counter() - t0
+    tag = f"[14] sharded dense QP {HI_M}x{HI_N} (hi_acc cell's first), world {world} (gloo)"
+    p0 = float(p_star[0])
+    for r, rec in enumerate(res):
+        if rec["status"] != "solved" or abs(rec["pobj"] - p0) > 1e-3 * (1 + abs(p0)):
+            raise AssertionError(f"{tag}: rank {r} {rec['status']} pobj {rec['pobj']} (p* {p0})")
+        if rec["g1"] <= 0 or rec["g2"] <= 0 or rec["spmv"] or rec["rows"][0] != HI_M // world:
+            raise AssertionError(f"{tag}: rank {r} G1 {rec['g1']}, G2 {rec['g2']}, SpMV "
+                                 f"{rec['spmv']}, local A {rec['rows']}")
+        if not np.array_equal(rec["x"], res[0]["x"]):
+            raise AssertionError(f"{tag}: rank {r}'s x differs from rank 0's")
+    r0 = res[0]
+    checks = _print_checks(tag, [r["checks"] for r in res])
+    print(f"{tag}: {r0['status']} in {r0['iter']} iterations on every rank, pobj "
+          f"{r0['pobj']:.6e} against p* {p0:.6e} ({abs(r0['pobj'] - p0) / (1 + abs(p0)):.2e}); "
+          f"local A {r0['rows']}; G1 / G2 launches by rank {[(r['g1'], r['g2']) for r in res]}, "
+          f"G1 by shape {r0['g1_shapes']}, {r0['collectives']} all_gathers a rank; setup + "
+          f"solve {r0['secs']:.2f} s, world wall "
+          f"{wall:.1f} s; x bit-equal on every rank")
+    return dict(g1=[r["g1"] for r in res], g2=[r["g2"] for r in res], checks=checks)
+
+
+def _dryrun_rank(device):
+    """One rank of phase 14 (c): the dryrun's four legs, then the kernel
+    checks at every shape the legs launched (random operands)."""
+    res = dryrun.legs(device)
+    res["checks"] = _in_turns(_sharded_checks)
+    return res
+
+
+def phase_sharded_dryrun():
+    """Phase 14 (c): parallel/dryrun.py's four legs on the card, one NCCL
+    rank: every leg terminal, D1 counted on leg 3 (f32 at eps 1e-5)."""
+    t0 = time.perf_counter()
+    (res,) = spawn_world(1, _dryrun_rank, ("cuda",), backend="nccl", timeout=SHARDED_TIMEOUT)
+    wall = time.perf_counter() - t0
+    d1 = res["dense"]["launches"]
+    if not (d1.get("df32.mv", 0) > 0 and d1.get("df32.tv", 0) > 0):
+        raise AssertionError(f"[14] dryrun leg 3: no D1 launch ({d1})")
+    for leg in ("batch", "cg", "dense", "bell"):
+        rec = res[leg]
+        what = (f"statuses {rec['statuses']}" if leg == "batch" else
+                f"{rec['iters']} CG iterations" if leg == "cg" else
+                f"{rec['status']} in {rec['iters']} iterations")
+        print(f"[14] dryrun leg {leg} on {res['device']} (one NCCL rank): {what}, "
+              f"{rec['secs']:.2f} s, launches {rec['launches']}")
+    print(f"[14] {dryrun.summary(res, 1)}; world wall {wall:.1f} s")
+    res["checks"] = _print_checks("[14] dryrun legs, world 1 (nccl)", [res["checks"]])
+    return res
+
+
+def phase_sharded(pobj_ref):
+    """Phase 14: (a) the bell LP at world 1 (NCCL), (b) at world 2 (gloo, one
+    card) and the dense QP at world 2, (c) the dryrun's legs at world 1."""
+    torch.cuda.empty_cache()
+    a = phase_sharded_bell(1, "nccl", pobj_ref)
+    b = phase_sharded_bell(2, "gloo", a["pobj"])
+    dense = phase_sharded_dense(2)
+    c = phase_sharded_dryrun()
+    checks = a["checks"] + b["checks"] + dense["checks"] + c["checks"]
+    return checks, {
+        "bell_spmv": {"a_world1_nccl": a["launches_by_rank"], "b_world2_gloo": b["launches_by_rank"],
+                      "c_dryrun_bell_qp": c["bell"]["launches"].get("bell_spmv", 0)},
+        "gemv_rows": {"b_world2_dense": dense["g1"],
+                      "c_dryrun": sum(c[k]["launches"].get("gemv_rows", 0) for k in ("batch", "cg", "dense"))},
+        "gemv_cols": {"b_world2_dense": dense["g2"],
+                      "c_dryrun": sum(c[k]["launches"].get("gemv_cols", 0) for k in ("batch", "cg", "dense"))},
+        "df32.mv": {"c_dryrun_dense_lp": c["dense"]["launches"].get("df32.mv", 0)},
+        "df32.tv": {"c_dryrun_dense_lp": c["dense"]["launches"].get("df32.tv", 0)},
+    }
+
+
+def nccl_same_card():
+    """Two NCCL ranks asking for one card: rank_device must raise (or NCCL
+    itself refuses them)."""
+    from scs_tpu_torch.parallel.mesh import rank_device  # noqa: PLC0415
+
+    rank_device("cuda:0", torch.distributed.group.WORLD)
+    torch.distributed.barrier()
+
+
 def main():
     t_start = time.perf_counter()
     name, name_and_limit = phase_device()
@@ -1550,7 +1869,7 @@ def main():
     max_err_g, gemv_flag, _ = phase_kernels_dense(name_and_limit)
     max_err_d1, d1_recs = phase_kernels_comp(name_and_limit)
     cone_report, eigh_ms = phase_kernels_cones()
-    launches = phase_main(bench)
+    launches, pobj4 = phase_main(bench)
     phase_qp(qp)
     launches_b = phase_batch(batch)
     del bench, qp, batch
@@ -1563,6 +1882,7 @@ def main():
     d1_cell = phase_hi_acc()
     bench_launches = phase_bench(name_and_limit)
     phase_instrumented(name_and_limit)
+    sharded_checks, sharded = phase_sharded(pobj4)
 
     f32 = torch.float32
     spmv_src = "scs_tpu_torch/ops/csrc/bell_spmv.cu"
@@ -1652,9 +1972,18 @@ def main():
             for rec in (d1_recs[("hi_acc A", w)],)
         ),
     ]
-    # each kernel's launches in phase 12's bench run (this slice's path)
+    # each kernel's launches in phase 12's bench run, and on phase 14's
+    # sharded paths (per world; 0 where the sharded paths do not run it)
+    # with its checks there, at every shape it was launched at
     for k in kernels:
-        k["launches_bench"] = bench_launches.get(k["name"].split(" (")[0], 0)
+        base = k["name"].split(" (")[0]
+        k["launches_bench"] = bench_launches.get(base, 0)
+        k["launches_sharded"] = sharded.get(base, 0)
+        k["sharded_checks"] = [
+            {key: c[key] for key in ("where", "shape", "operands", "launches", "max_abs_err",
+                                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for c in sharded_checks if c["kernel"] == base
+        ]
     print(f"[end] whole run {time.perf_counter() - t_start:.1f} s of wall on {name_and_limit}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,12 @@ matrix-free CG), a batch being a list of sparse matrices; the f32
 high-accuracy mode (compensated products, ops/df32.py) and the batched
 polish (BatchedSCS.polish); the per-phase timers, measured with
 phase_timing="always" (the instrumented loop; BatchedSCS.phase_times); and
-the bench, `python -m scs_tpu_torch.bench_cli`. Not yet ported
-(ROADMAP.md): ShardedSCS and the rest of scs_tpu.parallel. The package never
-imports JAX; scs_tpu stays the reference it is tested against.
+the bench, `python -m scs_tpu_torch.bench_cli`; and scs_tpu.parallel on
+torch.distributed (scs_tpu_torch.parallel: ShardedSCS, one problem with A
+row-sharded over the ranks, dense or block-ELL; the sharded CG; a batch
+split over the ranks), one process a rank (`torchrun --nproc-per-node N`).
+The package never imports JAX; scs_tpu stays the reference it is tested
+against.
 """
 
 __version__ = "1.0.0"  # tracks scs_tpu.__version__

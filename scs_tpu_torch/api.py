@@ -265,7 +265,7 @@ class SCS:
             else:
                 scal = identity_scaling(m, n)
                 Ah, Ph, bh, ch, spec_hat = A_dense, P_dense, b, c, spec
-            Ah = t(Ah).contiguous()
+            Ah = self._place_dense(t, Ah)
             Ph = t(Ph).contiguous() if has_P else None
         self._scal = scal
         self._spec_hat = spec_hat
@@ -288,7 +288,7 @@ class SCS:
             norm_c=t(np.linalg.norm(c)),
         )
 
-        self.core = Core(m, n, has_P, spec_hat, self.stg)
+        self.core = self._make_core(m, n, has_P, spec_hat)
         # setup: the factorization (direct) and g
         self._state0 = self.core.init_state(self.mats)
         self.core._sync()
@@ -301,7 +301,7 @@ class SCS:
         # (scs/scsobject.h:12, 939-955).
         self._lock = threading.RLock()
 
-        if self.stg.write_data_filename:
+        if self.stg.write_data_filename and self._logs:
             write_problem(
                 self.stg.write_data_filename,
                 {"A": self._A_input, "b": b, "c": c, "P": data.get("P")},
@@ -321,6 +321,24 @@ class SCS:
                     )
                 },
             )
+
+    # -- subclass hooks (parallel.ShardedSCS overrides them) ----------------
+
+    _logs = True  # this instance prints, writes the CSV and the problem file
+
+    def _make_core(self, m, n, has_P, spec_hat):
+        """The solver core; ShardedSCS substitutes a row-sharded one."""
+        return Core(m, n, has_P, spec_hat, self.stg)
+
+    def _place_dense(self, t, Ah):
+        """The equilibrated dense A on the solver's device (`t` converts a
+        host array); ShardedSCS places only this rank's rows."""
+        return t(Ah).contiguous()
+
+    def _rank0(self, flag):
+        """A host decision taken from this process's clock, as the caller
+        computed it; ShardedSCS takes rank 0's on every rank."""
+        return flag
 
     def _build_bell(self, Ah_sp, Ph_sp, spec_hat, dtype):
         """Pack the equilibrated sparse operator into block-ELL form on the
@@ -398,8 +416,12 @@ class SCS:
             state = self._state0
 
         interrupted = False
-        verbose = stg.verbose
-        csv = CsvLogger(stg.log_csv_filename) if stg.log_csv_filename else None
+        verbose = stg.verbose and self._logs
+        csv = (
+            CsvLogger(stg.log_csv_filename)
+            if stg.log_csv_filename and self._logs
+            else None
+        )
 
         if verbose:
             print_header(
@@ -445,7 +467,7 @@ class SCS:
             if verbose or csv is not None:
                 # ONE device read per chunk
                 self._log_check(self._probe_values(state), el, verbose, csv)
-            if done or (stg.time_limit_secs and el > stg.time_limit_secs):
+            if done or (stg.time_limit_secs and self._rank0(el > stg.time_limit_secs)):
                 return state
 
     def _instrumented_loop(self, state, core, mats, stg, csv, verbose, t0):
@@ -483,7 +505,7 @@ class SCS:
             el = pc() - t0
             done = int(p[1]) != info_mod.UNFINISHED or int(p[0]) >= stg.max_iters
             self._log_check(p, el, verbose, csv)
-            if done or (stg.time_limit_secs and el > stg.time_limit_secs):
+            if done or (stg.time_limit_secs and self._rank0(el > stg.time_limit_secs)):
                 break
         self._measured_phases = (t_lin, t_cone, t_accel)
         return state
@@ -632,7 +654,7 @@ class SCS:
         stg = self.stg
         if self._measured_phases is not None:
             lin_sys_time, cone_time, accel_time = self._measured_phases
-        elif stg.phase_timing == "auto" and (stg.verbose or solve_time > 0.3):
+        elif stg.phase_timing == "auto" and (stg.verbose or self._rank0(solve_time > 0.3)):
             pt = core.phase_times([self._state0, state], mats)
             # each iteration does one linear projection + one cone
             # projection; each AA trial adds a candidate solve + safeguard

@@ -21,6 +21,10 @@ batched scs_tpu State into batch_core.State, where every leaf — the int32
 counters, the bool rescale trigger and the deferred-rescale ratio
 and the (B, n, n) factor slot L included — is a tensor with a leading B
 axis.
+
+The sharded paths: `sharded_mats_from_numpy` turns a sharded scs_tpu
+solver's Mats into one rank's Mats of the port's ShardedSCS (its slice of
+the per-device packs, or its rows of A).
 """
 
 from __future__ import annotations
@@ -137,3 +141,27 @@ def batch_state_from_numpy(state, device="cpu", dtype=None) -> batch_core.State:
         else:
             kw[f] = t(val)
     return batch_core.State(**kw)
+
+
+def sharded_mats_from_numpy(mats, rank, n_dev, device="cpu", dtype=None) -> Mats:
+    """One rank's Mats of a sharded scs_tpu solver (numpy leaves): under
+    bell, rank `rank`'s slice of the per-device packs (leading n_dev axis on
+    A_blocks, A_cols, At_blocks, At_cols and P's blocks and cols); under the
+    dense strategies, its contiguous rows of the row-sharded A (m a
+    multiple of n_dev, as ShardedSCS pads it). Every other leaf is
+    replicated and comes across whole."""
+    bell, pbell = mats.bell, mats.pbell
+    A = None if mats.A is None else np.asarray(mats.A)
+    if bell is not None:
+        bell = bell._replace(**{
+            f: np.asarray(getattr(bell, f))[rank]
+            for f in ("A_blocks", "A_cols", "At_blocks", "At_cols")
+        })
+        if pbell is not None:
+            pbell = pbell._replace(
+                blocks=np.asarray(pbell.blocks)[rank], cols=np.asarray(pbell.cols)[rank]
+            )
+    elif A is not None and A.size:
+        m_loc = A.shape[0] // n_dev
+        A = A[rank * m_loc : (rank + 1) * m_loc]
+    return mats_from_numpy(mats._replace(A=A, bell=bell, pbell=pbell), device, dtype)

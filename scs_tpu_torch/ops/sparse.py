@@ -19,6 +19,7 @@ unchanged, so a pack made by either package serves both.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -103,8 +104,9 @@ def bell_spmv(blocks, cols, x):
 
     On a CUDA tensor this launches the CUDA kernel of csrc/bell_spmv.cu
     (built with nvcc at first use) on the current stream and counts the
-    launch in `bell_spmv.launches`; anything the kernel does not take
-    raises. On a CPU tensor it pads x and calls bell_spmv_ref.
+    launch in `bell_spmv.launches` and, by (nbr, w, bs, len(x)), in
+    `bell_spmv.shapes`; anything the kernel does not take raises. On a CPU
+    tensor it pads x and calls bell_spmv_ref.
     """
     dev = blocks.device
     if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
@@ -121,10 +123,12 @@ def bell_spmv(blocks, cols, x):
     y = _launch("bell_spmv", "bell_spmv", blocks, cols, x, (nbr * bs,),
                 (nbr, width, bs, x.shape[0]))
     bell_spmv.launches += 1
+    bell_spmv.shapes[(nbr, width, bs, x.shape[0])] += 1
     return y
 
 
 bell_spmv.launches = 0  # kernel launches since the last reset
+bell_spmv.shapes = Counter()  # the same launches by (nbr, w, bs, len(x))
 
 
 def bell_spmv_batched_ref(blocks, cols, x_pad):
@@ -350,6 +354,89 @@ def pack_bell_sym(P_csc, block_size=128, dtype=torch.float32, device="cpu"):
         blocks=torch.as_tensor(blocks, dtype=dtype, device=device),
         cols=_cols_tensor(cols, blocks.shape[0], device),
         diag=torch.as_tensor(diag, dtype=dtype, device=device),
+    )
+
+
+def pack_bell_sharded(A_csc, n_dev, block_size=128, dtype=torch.float32):
+    """Host block-ELL packs of (A, A^T) for a row-sharded operator
+    (scs_tpu's `pack_bell_sharded`, the same numpy bits; nothing is placed
+    on a device, see `place_bell_shard`).
+
+    The m rows (a multiple of n_dev*block_size: callers pre-pad with
+    zero-cone rows) are split contiguously into n_dev groups; rank d gets
+    the pack of its row slice A_d and the pack of A_d^T, so that
+
+        A @ x    = gather_d(A_d @ x)          (x replicated)
+        A^T @ y  = sum_d(A_d^T @ y_d)         (y_d = rank d's rows of y)
+
+    Every rank's widths are padded to the largest (zero tiles pointing at
+    block 0) and the packs stacked along a leading n_dev axis.
+
+    Returns numpy (A_blocks, A_cols, At_blocks, At_cols, colsq_all) of
+    shapes (n_dev, nbr_loc, wA, bs, bs), (n_dev, nbr_loc, wA),
+    (n_dev, nbc, wAt, bs, bs), (n_dev, nbc, wAt), (n,); colsq_all is the
+    sum over the slices, in rank order, in the pack's dtype.
+    """
+    from scipy import sparse as sp  # noqa: PLC0415
+
+    m, n = A_csc.shape
+    if m % (n_dev * block_size) != 0:
+        raise ValueError(
+            f"sharded bell pack requires m ({m}) to be a multiple of "
+            f"n_dev*block_size ({n_dev * block_size}); pad rows first"
+        )
+    m_loc = m // n_dev
+    A_csc = sp.csc_matrix(A_csc)
+    packs = [
+        pack_bell_host(A_csc[d * m_loc : (d + 1) * m_loc], block_size, _np_dtype(dtype))
+        for d in range(n_dev)
+    ]
+    A_blocks, A_cols = stack_bell_host([p[0] for p in packs], [p[1] for p in packs])
+    At_blocks, At_cols = stack_bell_host([p[2] for p in packs], [p[3] for p in packs])
+    colsq_all = np.sum(np.stack([p[4] for p in packs]), axis=0)
+    return A_blocks, A_cols, At_blocks, At_cols, colsq_all
+
+
+def pack_bell_sym_sharded(P_csc, n_dev, block_size=128, dtype=torch.float32):
+    """Host block-ELL packs of the symmetric P for a row-sharded operator
+    (scs_tpu's `pack_bell_sym_sharded`, the same numpy bits): rank d holds
+    the pack of its contiguous row slice P_d of P, whose rows are padded
+    with zeros to a multiple of n_dev*block_size, so that
+
+        P @ x = gather_d(P_d @ x)[:n]        (x replicated)
+
+    Returns a solver.PBell of numpy arrays: blocks (n_dev, nbr_loc, w, bs,
+    bs), cols (n_dev, nbr_loc, w) and the (n,) diag.
+    """
+    from scipy import sparse as sp  # noqa: PLC0415
+
+    from ..solver import PBell  # noqa: PLC0415
+
+    P_csc = sp.csc_matrix(P_csc)
+    n = P_csc.shape[0]
+    pad = (-n) % (n_dev * block_size)
+    if pad:
+        P_csc = sp.vstack([P_csc.tocsr(), sp.csr_matrix((pad, n))]).tocsc()
+    n_loc = (n + pad) // n_dev
+    P_csr = P_csc.tocsr()
+    packs = [
+        pack_bell_host(P_csr[d * n_loc : (d + 1) * n_loc].tocsc(), block_size, _np_dtype(dtype))
+        for d in range(n_dev)
+    ]
+    blocks, cols = stack_bell_host([p[0] for p in packs], [p[1] for p in packs])
+    return PBell(
+        blocks=blocks, cols=cols, diag=np.asarray(P_csc.diagonal()[:n], _np_dtype(dtype))
+    )
+
+
+def place_bell_shard(blocks, cols, rank, n_blocks, device):
+    """Rank `rank`'s slice of a stacked sharded pack (numpy, leading n_dev
+    axis, from pack_bell_sharded / pack_bell_sym_sharded) as tensors on
+    `device`; the other ranks' slices are never uploaded. n_blocks bounds
+    the block-column ids (the CUDA kernel reads x[cols*bs : +bs]
+    unchecked)."""
+    return torch.as_tensor(blocks[rank], device=device), _cols_tensor(
+        cols[rank], n_blocks, device
     )
 
 

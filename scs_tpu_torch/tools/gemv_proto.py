@@ -219,13 +219,20 @@ def row_shifts(M):
     return sorted({(first + i * c) % per for i in range(min(B * r, per))})
 
 
-def check_shape(shape, dtype, kernels, gen, timed=True, offset=0, plain=False):
+def check_shape(shape, dtype, kernels, gen, timed=True, offset=0, plain=False, M=None):
     """One shape: for each kernel, agreement with its plain version within
     TOL, a bit-equal repeat, B = 1 equal to the 2-D call, exactly one launch
     per call, and (offset) whether the result equals that of an aligned copy;
     then, if timed, device ms (graphs), bound, torch.bmm ms, host us per call
-    (and the plain version's ms if `plain`). Returns {kernel: {...}}."""
-    M, v, u = make_inputs(shape, dtype, gen, offset)
+    (and the plain version's ms if `plain`). M: a (B, r, c) matrix of this
+    shape and dtype already on the card (a solver's own) instead of a random
+    one; the vectors are random either way. Returns {kernel: {...}}."""
+    if M is None:
+        M, v, u = make_inputs(shape, dtype, gen, offset)
+    else:
+        B, r, c = shape
+        v = torch.randn((B, c), generator=gen, device=M.device, dtype=dtype)
+        u = torch.randn((B, r), generator=gen, device=M.device, dtype=dtype)
     Mabs = M.abs()
     out = {}
     prev = torch.get_float32_matmul_precision()
