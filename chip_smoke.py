@@ -36,9 +36,19 @@ Phases, one line each; any failure raises and exits nonzero:
      in K, p - v in K*, <p, p - v> = 0; the Newton steps and the rows that
      left on a cycle; the same checks run after phase 10 on the rows phases
      9 and 10 handed the three kernels early, in the middle and late in
-     their solves); and every projection left as plain
-     tensor code on the card against the CPU in f64, with the library's
-     batched eigh timed per shape;
+     their solves); the spectral-cone kernels C4 proj_logdet_vec and C5
+     proj_sl_vec (csrc/spectral_proj.cu: the logdet and sum-of-k-largest
+     cones' vector parts after eigh, one warp a cone), f32 and f64, on rows
+     in every regime (inside, polar, on the v = 0 facet, active, v0 <= 0,
+     negative eigenvalues, ties, unsorted), at n = 1, 2, 31, 32, 33 (k = 1
+     and n - 1), past the 256 eigenvalues kept in registers, and at the
+     shapes phase 15 hands them: the stated tolerance, a bit-equal repeat,
+     the f64 geometry against the oracle's projection, the passes a row ran,
+     device ms from graph replays beside the plain version and the bound
+     (the same checks run after phase 15 on the rows its solves handed C4
+     and C5); and every projection left as plain tensor code on the card
+     against the CPU in f64, with the library's batched eigh timed per
+     shape;
   4. the main path: SCS(...).solve() under solver_strategy="bell" on the
      30000 x 20000 block-sparse LP of the scs_tpu bench's `bell` cell, f32,
      eps 1e-4, on "cuda"; the kernels' launch counts are zeroed just before
@@ -82,9 +92,8 @@ Phases, one line each; any failure raises and exits nonzero:
      worker processes; the same gates; then a
      torch.profiler window over two chunks (kernels per iteration, busy and
      idle share, the shares of eigh, of the cone kernels, of the GEMVs).
-     Phases 9 and 10 each solve their batch once untimed before the timed
-     solve, copying the rows the exp, power and box kernels are handed
-     (phase 3's checks run on them after phase 10);
+     Phases 9 and 10 copy the rows their solves hand the exp, power and
+     box kernels (phase 3's checks run on them after phase 10);
  11. the scs_tpu bench's `hi_acc` cell at its full size: 32 dense QPs of
      1500 x 1000 from its generator (scs_tpu/bench_cli.py:gen_batch, seed
      4321, planted optima p*), A and P in f32: (a) BatchedSCS at eps 1e-4,
@@ -125,7 +134,26 @@ Phases, one line each; any failure raises and exits nonzero:
      counts are read, each rank holds every kernel it launched, at every
      shape it launched it at, against the plain version on the same inputs
      (its own packs and rows of A where it has them), one rank at a time,
-     timed beside the plain version and the bound.
+     timed beside the plain version and the bound;
+ 15. spectral-cone solves on the card, eps 1e-4: (a) D-optimal experiment
+     design (Boyd & Vandenberghe 7.5), 64 problems of n = 32 parameters and
+     p = 256 candidate vectors (787 x 257, one logdet cone of a 32 x 32
+     matrix each) through BatchedSCS in f64 (in f32 neither scs_tpu nor the
+     port reaches eps 1e-4 on most of them within 20,000 iterations): 64/64
+     solved, f64 KKT within 5x, s in K and y in K* by the oracle (on every
+     16th problem: ~20 s of the host a problem), |t -
+     logdet X(lam)| <= DOPT_LOGDET_TOL (1 + |t|), the Kiefer-Wolfowitz gap
+     <= DOPT_DELTA n; then its problem 0
+     alone through SCS in f64, the same gates and pobj within 1e-3 of the
+     batch's; (b) 64 planted-optimum problems of 840 x 280 over z + l + two
+     sum-of-largest cones (32, k 4; 16, k 3) + a logdet cone (16), f32,
+     generated in worker processes: phase 9's gates (cone membership on
+     every 4th problem). The C4 / C5 / G1 / G2 launch
+     counts are zeroed just before each solve and read just after (one
+     launch a call of each spectral wrapper), a torch.profiler window over
+     two chunks each, and phase 3's checks of C4 and C5 on the rows the two
+     solves handed them early, in the middle and late (in the solve's
+     type).
 
 Then the whole run's wall time, one JSON line describing the kernels (each
 with its launches on the main path and in phase 12's bench run), and last
@@ -207,6 +235,27 @@ MIXED_TPU_ITERS = (351.6, 1200)  # mean, max: BENCH_r05.json, TPU v5e — refere
 MIXED_OBJ_TOL = 1.5e-3  # the bench's 3-decimal objective check
 WIDE_SEED, WIDE_WORKERS = 4000, 8
 CONE_KERNELS = (cone_ops._proj_exp_batch, cone_ops._proj_pow_batch, cone_ops._proj_box)
+SPECTRAL_KERNELS = (cone_ops._proj_logdet_vec_batch, cone_ops._proj_sl_vec_batch)  # C4, C5
+# Phase 15: the spectral-cone batches (scs_tpu_torch/tools/mixed_cone.py).
+# DOPT_DELTA: the Kiefer-Wolfowitz gate, gap <= DOPT_DELTA * n, fixed
+# before any run on the card from the port's CPU solves of the same
+# generator at (n = 8, p = 64), f32, eps 1e-4: gap / n 6.5e-5 to 4.8e-4 over
+# seeds 5150-5157 (PERF.md), with a tenfold margin. DOPT_LOGDET_TOL: |t -
+# logdet X(lam)| over 1 + |t|. At eps 1e-4 the primal residual of the X
+# rows moves logdet X(lam) by up to ~1e-2 of it: scs_tpu's own f64
+# solutions of problems 0-3 read 2.9e-4 to 5.5e-3 (on the CPU), the port's
+# up to 7.2e-3 over the 64 (PERF.md). The batch runs in f64: in f32
+# neither scs_tpu nor the port reaches eps 1e-4 on most of these problems
+# within 20,000 iterations (PERF.md)
+DOPT_EPS, DOPT_DELTA, DOPT_LOGDET_TOL, DOPT_POBJ_TOL = 1e-4, 5e-3, 1e-2, 1e-3
+DOPT_DTYPE, SPECTRAL_DTYPE = "float64", "float32"
+# Cone membership by the oracle on every DOPT_CONE_EVERY-th problem of (a)
+# and every SPECTRAL_CONE_EVERY-th of (b), the residuals on all of them: the
+# oracle's SLSQP projections took 185 s of eight workers for all 64 of (a)
+# (~20 s a problem at n = 32) and 38.7 s for (b)'s (PERF.md), past
+# the script's time limit
+DOPT_CONE_EVERY, SPECTRAL_CONE_EVERY = 16, 4
+SPECTRAL_WORKERS = 8
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the non-tensor-core rates of the kernels' element types
 HBM_BYTES_PER_S = 3.35e12
@@ -1032,6 +1081,25 @@ def phase_kernels_cones():
     return report, eigh_ms
 
 
+def phase_kernels_spectral():
+    """C4 and C5 (proj_logdet_vec, proj_sl_vec) against their plain
+    versions (mixed_cone.check_spectral_kernels: rows in every regime, n in
+    1, 2, 31, 32, 33 and past 256, the shapes phase 15 hands them; the
+    stated tolerance, a bit-equal repeat, the f64 geometry against the
+    oracle's projection in worker processes)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+        SPECTRAL_WORKERS, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        report = mixed_cone.check_spectral_kernels(
+            HBM_BYTES_PER_S, PEAK_FLOPS, mixed_cone.sm_clock_hz(), pool=pool)
+    print(f"[3] C4 and C5 checked in {time.perf_counter() - t0:.1f} s")
+    return report
+
+
 def phase_kernels_captured(*captures):
     """Phase 3's checks of proj_exp, proj_pow and proj_box
     (check_cone_kernels: the stated tolerance, a bit-equal repeat, the f64
@@ -1052,7 +1120,7 @@ def phase_kernels_captured(*captures):
           f"{len(box_in)} box cases, f32 and f64, checked in {time.perf_counter() - t0:.1f} s")
 
 
-def _mixed_gates(label, K, data, p_star, solver, res, pool=None, A_rows=None):
+def _mixed_gates(label, K, data, p_star, solver, res, pool=None, A_rows=None, cone_every=1):
     """The gates of a mixed-cone batch: all solved, objectives against the
     planted ones, host f64 residuals and cone membership, the projections
     through their kernels and the matvecs through the GEMV kernels. Returns
@@ -1078,7 +1146,7 @@ def _mixed_gates(label, K, data, p_star, solver, res, pool=None, A_rows=None):
     if bell_spmv.launches + bell_spmv_batched.launches != 0:
         raise AssertionError(f"{label}: the dense path launched a block-ELL SpMV kernel")
     return mixed_cone.check_solutions(
-        K, data, res, mixed_cone.MIXED_EPS, pool=pool, A_rows=A_rows
+        K, data, res, mixed_cone.MIXED_EPS, pool=pool, A_rows=A_rows, cone_every=cone_every
     )
 
 
@@ -1109,10 +1177,10 @@ def _time_phases(solver, reps=5):
 
 def _solve_mixed(label, K, data):
     """Set up and solve one mixed-cone batch on the card; the launch counts
-    are zeroed just before the timed solve. A solve before it, untimed,
-    copies the rows of every 50th call of proj_exp, proj_pow and proj_box
-    (mixed_cone.CaptureRows, for phase 3's checks on them). Returns
-    (solver, results, setup s, solve s, per-phase ms, capture)."""
+    are zeroed just before the solve. The solve copies the rows of every
+    50th call of proj_exp, proj_pow and proj_box (mixed_cone.CaptureRows,
+    for phase 3's checks on them: a clone on the device, no kernel launch).
+    Returns (solver, results, setup s, solve s, per-phase ms, capture)."""
     t0 = time.perf_counter()
     solver = scs_tpu_torch.BatchedSCS(
         data, K, dtype="float32", eps_abs=mixed_cone.MIXED_EPS, eps_rel=mixed_cone.MIXED_EPS,
@@ -1122,14 +1190,13 @@ def _solve_mixed(label, K, data):
     setup = time.perf_counter() - t0
     phases = _time_phases(solver)
     solver.reset()
-    with mixed_cone.CaptureRows() as cap:
-        solver.solve()
-    solver.reset()
     _zero_counts(*CONE_KERNELS, gemv_rows, gemv_cols, bell_spmv, bell_spmv_batched)
-    t0 = time.perf_counter()
-    res = solver.solve()
-    torch.cuda.synchronize()
-    return solver, res, setup, time.perf_counter() - t0, phases, cap
+    with mixed_cone.CaptureRows() as cap:
+        t0 = time.perf_counter()
+        res = solver.solve()
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t0
+    return solver, res, setup, solve, phases, cap
 
 
 def _mixed_report(tag, label, solver, res, p_star, setup, solve, phases, worst, extra=""):
@@ -1164,6 +1231,7 @@ def _profile_report(tag, solver):
         return sum(ms for name, ms, _ in rows if any(p in name.lower() for p in pats))
 
     cones = share("proj_exp", "proj_pow", "proj_box")
+    c4, c5 = share("proj_logdet"), share("proj_sl_")
     gemv = share("gemv_")
     # the library's symmetric eigensolver: tridiagonalization, divide and
     # conquer or Jacobi sweeps, back-transformation
@@ -1174,8 +1242,9 @@ def _profile_report(tag, solver):
         f"ms unprofiled, {prof_ms:.1f} ms profiled; {n_kernels} kernels ({n_kernels / iters:.1f} "
         f"per iteration), busy {busy:.1f} ms = {100 * busy / plain_ms:.1f}% of the unprofiled wall "
         f"(idle {100 - 100 * busy / plain_ms:.1f}%); of busy: gemv kernels "
-        f"{100 * gemv / busy:.1f}%, the three cone kernels {100 * cones / busy:.1f}%, eigh (by "
-        f"kernel name) {100 * eigh / busy:.1f}%"
+        f"{100 * gemv / busy:.1f}%, the three cone kernels {100 * cones / busy:.1f}%, C4 "
+        f"{100 * c4 / busy:.1f}%, C5 {100 * c5 / busy:.1f}%, eigh (by kernel name) "
+        f"{100 * eigh / busy:.1f}%"
     )
     for name, ms, count in rows[:12]:
         print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{count:<6d} {name[:90]}")
@@ -1233,6 +1302,190 @@ def _mixed_wide(K, pool):
     )
     _profile_report(10, solver)
     return launches, cap
+
+
+def _solve_spectral(K, data, dtype):
+    """Set up and solve one spectral-cone batch on the card, eps DOPT_EPS:
+    the launch counts zeroed just before the solve and read just
+    after, the rows of every 50th call of C4 / C5 of each width copied
+    (mixed_cone.CaptureRows; a clone on the device, no kernel launch).
+    Returns (solver, results, setup s, solve s, launches, capture)."""
+    t0 = time.perf_counter()
+    solver = scs_tpu_torch.BatchedSCS(
+        data, K, dtype=dtype, eps_abs=DOPT_EPS, eps_rel=DOPT_EPS, max_iters=20000, device="cuda",
+    )
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    kernels = (*SPECTRAL_KERNELS, *CONE_KERNELS, gemv_rows, gemv_cols, bell_spmv,
+               bell_spmv_batched)
+    _zero_counts(*kernels)
+    with mixed_cone.CaptureRows() as cap:
+        t0 = time.perf_counter()
+        res = solver.solve()
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in kernels}
+    return solver, res, setup, solve, launches, cap
+
+
+def _spectral_launch_gates(label, launches, cap, need_logdet, need_sl):
+    """Every spectral projection through its kernel (one launch a call of
+    the wrapper), the dense matvecs through G1/G2, no SpMV."""
+    faults = []
+    for kind, name, needed in (("logdet", "_proj_logdet_vec_batch", need_logdet),
+                               ("sl", "_proj_sl_vec_batch", need_sl)):
+        if launches[name] != cap.calls[kind] or bool(needed) != (launches[name] > 0):
+            faults.append(f"{name}: {launches[name]} launches for {cap.calls[kind]} calls")
+    if min(launches["gemv_rows"], launches["gemv_cols"]) <= 0:
+        faults.append(f"gemv launches {launches['gemv_rows']}, {launches['gemv_cols']}")
+    if launches["bell_spmv"] + launches["bell_spmv_batched"] + sum(
+            launches[f.__name__] for f in CONE_KERNELS):
+        faults.append(f"a kernel off this path launched: {launches}")
+    if faults:
+        raise AssertionError(f"{label}: " + "; ".join(faults))
+
+
+def _spectral_report(label, dtype, res, setup, solve, launches, worst, extra=""):
+    iters = np.array([r["info"]["iter"] for r in res])
+    print(
+        f"[15] {label}, {dtype} on cuda: {len(res)}/{len(res)} solved; setup {setup:.3f} s, solve "
+        f"{solve:.3f} s; iterations mean {iters.mean():.1f}, max {iters.max()}; launches C4 "
+        f"{launches['_proj_logdet_vec_batch']}, C5 {launches['_proj_sl_vec_batch']}, gemv_rows "
+        f"{launches['gemv_rows']}, gemv_cols {launches['gemv_cols']} ({_gemv_counts()}), SpMV 0; "
+        f"worst host f64 residual / limit: pri {worst[0]:.3f}, dual {worst[1]:.3f}, gap "
+        f"{worst[2]:.3f}; distance of s from K {worst[3]:.2e}, of y from K* {worst[4]:.2e} "
+        f"(relative; the oracle's projections){extra}"
+    )
+
+
+def _dopt_gates(label, V, results):
+    """The design gates on each solution: |t - logdet X(lam)| and the
+    Kiefer-Wolfowitz gap. Returns the worst of each, and how many are over
+    1e-3 (1 + |t|)."""
+    worst = [0.0, 0.0, 0]
+    for i, r in enumerate(results):
+        rel, gap = mixed_cone.dopt_check(V[i], r["x"])
+        if not (rel <= DOPT_LOGDET_TOL and gap <= DOPT_DELTA):
+            raise AssertionError(
+                f"{label} problem {i}: |t - logdet X| / (1 + |t|) {rel:.3e} (limit "
+                f"{DOPT_LOGDET_TOL:g}), Kiefer-Wolfowitz gap / n {gap:.3e} (limit {DOPT_DELTA:g})")
+        worst = [max(worst[0], rel), max(worst[1], gap), worst[2] + (rel > 1e-3)]
+    return worst
+
+
+def _phase_dopt(pool):
+    """Phase 15 (a): the D-optimal design batch through BatchedSCS, then its
+    problem 0 alone through SCS in f64; the host's checks of both in the
+    pool's workers at once (problem 0 alone last, with its cone membership:
+    DOPT_B is a multiple of DOPT_CONE_EVERY). Returns (launches,
+    capture)."""
+    B, n, p = mixed_cone.DOPT_B, mixed_cone.DOPT_N, mixed_cone.DOPT_P
+    K = mixed_cone.dopt_cone(n, p)
+    t0 = time.perf_counter()
+    data, V = mixed_cone.gen_dopt_batch(B, n, p, mixed_cone.DOPT_SEED)
+    gen = time.perf_counter() - t0
+    label = f"(a) D-optimal design {B} x {data['A'].shape[1]}x{data['A'].shape[2]} over {K}"
+    solver, res, setup, solve, launches, cap = _solve_spectral(K, data, DOPT_DTYPE)
+    statuses = [r["info"]["status"] for r in res]
+    if statuses.count("solved") != B:
+        raise AssertionError(f"{label}: {statuses.count('solved')}/{B} solved: {set(statuses)}")
+    _spectral_launch_gates(label, launches, cap, True, False)
+    rel, gap, over = _dopt_gates(label, V, res)
+    pobj0 = res[0]["info"]["pobj"]
+
+    # problem 0 alone, f64, through SCS
+    data0 = {"A": sparse.csc_matrix(data["A"][0].astype(np.float64)), "b": data["b"][0],
+             "c": data["c"][0]}
+    _zero_counts(*SPECTRAL_KERNELS)
+    t0 = time.perf_counter()
+    one = scs_tpu_torch.solve(data0, K, device="cuda", dtype="float64", eps_abs=DOPT_EPS,
+                              eps_rel=DOPT_EPS, max_iters=20000, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    info = one["info"]
+    c4_one = cone_ops._proj_logdet_vec_batch.launches
+    if info["status"] != "solved" or c4_one <= 0:
+        raise AssertionError(f"{label} problem 0 in f64: {info['status']}, C4 launches {c4_one}")
+    rel1, gap1, _ = _dopt_gates(f"{label} problem 0 in f64", V[:1], [one])
+    diff = abs(info["pobj"] - pobj0)
+    if not diff <= DOPT_POBJ_TOL * (1 + abs(info["pobj"])):
+        raise AssertionError(f"{label} problem 0: pobj f64 {info['pobj']!r} against the batch's "
+                             f"{pobj0!r}")
+
+    # the host's checks of the batch and of problem 0 alone (last) at once
+    t0 = time.perf_counter()
+    both = {k: np.concatenate([v, v[:1]]) for k, v in data.items()}
+    worst = mixed_cone.check_solutions(K, both, res + [one], DOPT_EPS, pool=pool,
+                                       cone_every=DOPT_CONE_EVERY)
+    _spectral_report(
+        label, DOPT_DTYPE, res, setup, solve, launches, worst,
+        f"; generated in {gen:.2f} s; worst |t - logdet X(lam)| / (1 + |t|) {rel:.3e} (limit "
+        f"{DOPT_LOGDET_TOL:g}; {over} of {B} over 1e-3); Kiefer-Wolfowitz gap / n {gap:.3e} (limit "
+        f"{DOPT_DELTA:g}); cone membership on every {DOPT_CONE_EVERY}th problem; the host's checks "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(f"[15] (a) problem 0 alone through SCS, f64 on cuda: solved in {info['iter']} iterations, "
+          f"{secs:.3f} s, C4 launches {c4_one}; pobj {info['pobj']:.8f} against the batch's "
+          f"{pobj0:.8f} (|diff| {diff:.2e}); its residuals and cone distances checked with the "
+          f"batch's (above); |t - logdet| {rel1:.2e}, Kiefer-Wolfowitz gap / n {gap1:.3e}")
+    _profile_report(15, solver)
+    return launches, cap
+
+
+def _phase_spectral_planted(futures, pool):
+    """Phase 15 (b): planted optima over both spectral cones, generated in
+    the pool since the phase began; phase 9's gates. Returns as
+    _phase_dopt."""
+    K, B = mixed_cone.SPECTRAL_K, mixed_cone.SPECTRAL_B
+    t0 = time.perf_counter()
+    data, p_star, A_rows = mixed_cone.collect_mixed_batch(futures)
+    wait = time.perf_counter() - t0
+    _, m, n = data["A"].shape
+    label = f"(b) planted spectral batch {B} x {m}x{n} over {K}"
+    solver, res, setup, solve, launches, cap = _solve_spectral(K, data, SPECTRAL_DTYPE)
+    _spectral_launch_gates(label, launches, cap, True, True)
+    t0 = time.perf_counter()
+    worst = _mixed_gates(label, K, data, p_star, solver, res, pool, A_rows,
+                         cone_every=SPECTRAL_CONE_EVERY)
+    err = np.abs(np.array([r["info"]["pobj"] for r in res]) - p_star)
+    _spectral_report(label, SPECTRAL_DTYPE, res, setup, solve, launches, worst,
+                     f"; max |pobj - p*| {err.max():.2e} (limit {MIXED_OBJ_TOL:g}); cone "
+                     f"membership on every {SPECTRAL_CONE_EVERY}th problem; the "
+                     f"generation's wait after (a) {wait:.2f} s; the host's checks "
+                     f"{time.perf_counter() - t0:.1f} s")
+    _profile_report(15, solver)
+    return launches, cap
+
+
+def phase_spectral():
+    """Phase 15: spectral-cone solves on the card, (a) and (b); then phase
+    3's checks of C4 and C5 (check_spectral_kernels) on the rows the two
+    solves handed them early, in the middle and late, each in its solve's
+    type. Returns the kernels' launches in (a) + (b)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+        SPECTRAL_WORKERS, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        futures = mixed_cone.gen_mixed_batch(
+            mixed_cone.SPECTRAL_K, mixed_cone.SPECTRAL_B, mixed_cone.SPECTRAL_SEED, pool=pool)
+        la, cap_a = _phase_dopt(pool)
+        lb, cap_b = _phase_spectral_planted(futures, pool)
+        print(f"[15] phase 15: {time.perf_counter() - t0:.1f} s, generation, solves, gates and "
+              f"profiler windows")
+        t0 = time.perf_counter()
+        n_cases = 0
+        for tag, cap, dtype in (("(a)", cap_a, DOPT_DTYPE), ("(b)", cap_b, SPECTRAL_DTYPE)):
+            ld_in, sl_in = cap.spectral_inputs(tag)
+            n_cases += len(ld_in) + len(sl_in)
+            mixed_cone.check_spectral_kernels(
+                HBM_BYTES_PER_S, PEAK_FLOPS, mixed_cone.sm_clock_hz(), logdet_cases=(),
+                sl_cases=(), logdet_inputs=ld_in, sl_inputs=sl_in, pool=pool,
+                dtypes=(getattr(torch, dtype),))
+    print(f"[3] C4 and C5 on {n_cases} cases of rows phase 15 captured, each in its solve's "
+          f"type, checked in {time.perf_counter() - t0:.1f} s")
+    return {name: la[name] + lb[name] for name in la}
 
 
 def _hi_kkt(A, P, b, c, res, tol):
@@ -1869,6 +2122,7 @@ def main():
     max_err_g, gemv_flag, _ = phase_kernels_dense(name_and_limit)
     max_err_d1, d1_recs = phase_kernels_comp(name_and_limit)
     cone_report, eigh_ms = phase_kernels_cones()
+    spectral_report = phase_kernels_spectral()
     launches, pobj4 = phase_main(bench)
     phase_qp(qp)
     launches_b = phase_batch(batch)
@@ -1883,6 +2137,7 @@ def main():
     bench_launches = phase_bench(name_and_limit)
     phase_instrumented(name_and_limit)
     sharded_checks, sharded = phase_sharded(pobj4)
+    spectral_launches = phase_spectral()
 
     f32 = torch.float32
     spmv_src = "scs_tpu_torch/ops/csrc/bell_spmv.cu"
@@ -1970,6 +2225,26 @@ def main():
                 ("tv", "cols", "scs_tpu/ops/df32.py:51", d1_single[1]),
             )
             for rec in (d1_recs[("hi_acc A", w)],)
+        ),
+        *(
+            entry(kname, "scs_tpu_torch/ops/csrc/spectral_proj.cu", replaces,
+                  spectral_launches[wrapper], spectral_report[kname]["max_abs_err"],
+                  spectral_report[kname]["ms"], spectral_report[kname]["plain_ms"],
+                  (spectral_report[kname]["bound_ms"], spectral_report[kname]["bound_by"]), None,
+                  shape=spectral_report[kname]["shape"] + " f32",
+                  chain_ms=spectral_report[kname]["chain_ms"],
+                  passes_inner=spectral_report[kname]["inner"],
+                  passes_outer=spectral_report[kname]["outer"],
+                  note="launches: phase 15's two solves, (a) + (b). ms: device time from "
+                       "CUDA-graph replays; plain_ms: one call of the plain version, CUDA events. "
+                       "bound_ms: the larger of the bytes, the operations of the passes the "
+                       "rows ran (the kernel's exits are exact) and the longest row's serial "
+                       "chain (chain_ms). No Pallas kernel existed: XLA fused these fori_loops "
+                       "into the solver's program. No single PyTorch call computes it.")
+            for kname, wrapper, replaces in (
+                ("proj_logdet_vec", "_proj_logdet_vec_batch", "scs_tpu/ops/projections.py:580"),
+                ("proj_sl_vec", "_proj_sl_vec_batch", "scs_tpu/ops/projections.py:530"),
+            )
         ),
     ]
     # each kernel's launches in phase 12's bench run, and on phase 14's

@@ -68,6 +68,14 @@ _SYMBOLS = {
         "proj_box_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
         "proj_box_f64": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     },
+    "spectral_proj": {
+        # (t0, v0, w0, t, v, w, inner, outer (each or null), k, n, stream)
+        "proj_logdet_vec_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+        "proj_logdet_vec_f64": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+        # (t0, w0, t, w, inner, outer (each or null), k, n, kk, stream)
+        "proj_sl_vec_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+        "proj_sl_vec_f64": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    },
 }
 
 _LIBS = {}  # (kernel name, source or None) -> loaded ctypes.CDLL

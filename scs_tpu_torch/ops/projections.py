@@ -12,25 +12,31 @@ happens when the projector is built: segments are bucketed by cone kind and
 size, a bucket of `count` cones is projected as one (B*count, size) batch,
 and index tensors are built once per device.
 
-Three projections are scalar iterations per cone (nested Newton and
+Five projections are scalar iterations per cone (nested Newton and
 bisection loops with fixed counts) that XLA fused into one program in
 scs_tpu. In eager PyTorch each line of each loop pass would be a kernel
 launch (tens of thousands per call), so on a CUDA tensor they run as the
-hand-written kernels of csrc/cone_proj.cu, one launch per call with every
-loop in registers:
+hand-written kernels of csrc/cone_proj.cu and csrc/spectral_proj.cu, one
+launch per call with every loop in registers:
 
   * _proj_exp_batch(v, sign=None)    — rows of (k, 3) onto the exponential
                                        cone, or (sign < 0) its dual cone
   * _proj_pow_batch(v, a, sign=None) — rows onto the power cones K_a[row]
   * _proj_box(v, bl, bu)             — (t, s) onto the box cone, per problem
+  * _proj_logdet_vec_batch(t0, v0, w0)  — the logdet cone's vector part,
+                                          after eigh
+  * _proj_sl_vec_batch(t0, w0, k)    — the sum-of-k-largest cone's vector
+                                       part, after eigh
 
 Each counts its launches in `.launches`; a failed build or launch raises,
 and nothing falls back. On a CPU tensor they are the plain versions beside
-them (_proj_exp_batch_ref, _proj_pow_batch_ref, _proj_box_ref), which keep
-scs_tpu's operations in scs_tpu's order (one deliberate difference: the
-power cone's Newton step halves towards a bound instead of clipping onto
-it, without which f32 stalls on ~2% of ordinary rows). The other projections are plain
-tensor code around one library call (eigh, svd, sort), as in scs_tpu.
+them (_proj_exp_batch_ref, _proj_pow_batch_ref, _proj_box_ref,
+_proj_logdet_vec_batch_ref, _proj_sl_vec_batch_ref), which keep scs_tpu's
+operations in scs_tpu's order (one deliberate difference: the power cone's
+Newton step halves towards a bound instead of clipping onto it, without
+which f32 stalls on ~2% of ordinary rows). The other projections, and the
+eigh and rebuild around the spectral ones, are plain tensor code around one
+library call (eigh, svd, sort), as in scs_tpu.
 """
 
 from __future__ import annotations
@@ -88,24 +94,26 @@ def _proj_nonneg(x):
 _CONE_FNS = {}  # (name, dtype) -> the C entry point
 
 
-def _cone_symbol(name, dtype):
-    """The C entry point of csrc/cone_proj.cu for `name` and `dtype`, built,
+def _cone_symbol(name, dtype, source="cone_proj"):
+    """The C entry point of csrc/<source>.cu for `name` and `dtype`, built,
     loaded and looked up once."""
     fn = _CONE_FNS.get((name, dtype))
     if fn is None:
         from . import _kernels  # noqa: PLC0415
 
-        lib = _kernels.load("cone_proj")
+        lib = _kernels.load(source)
         fn = _CONE_FNS[(name, dtype)] = getattr(
             lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
     return fn
 
 
-def _check_rows(who, v):
+def _check_rows(who, v, width=3):
+    """v: float32 or float64 rows (k, width); width None: any width >= 1."""
     if v.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{who}: rows must be float32 or float64, got {v.dtype}")
-    if v.dim() != 2 or v.shape[1] != 3:
-        raise ValueError(f"{who}: rows must have shape (k, 3), got {tuple(v.shape)}")
+    if v.dim() != 2 or (v.shape[1] != width if width else v.shape[1] < 1):
+        shape = f"(k, {width})" if width else "(k, n), n >= 1"
+        raise ValueError(f"{who}: rows must have shape {shape}, got {tuple(v.shape)}")
 
 
 def _check_like(who, name, t, v, shape):
@@ -740,9 +748,19 @@ def _proj_nuc_batch(z, mn):
 # Sum-of-k-largest-eigenvalues cone: {(t, X): sum_k-largest eig(X) <= t}.
 # Spectral reduction + epigraph projection via nested bisection:
 #   prox_{mu*s_k}(w) = w - mu * Pi_Y(w / mu),  Y = {y in [0,1]^n, 1'y = k}
-# Plain tensor code: 60 outer x 60 inner bisection passes, two sorts per
-# outer pass (a kernel is queued in ROADMAP.md).
+# On CUDA the vector part is the proj_sl_vec kernel (C5).
 # ---------------------------------------------------------------------------
+
+
+def _bisect_step(lo, mid, hi, up):
+    """A bisection pass's new bracket: lo = mid where `up`, else hi = mid."""
+    return torch.where(up, mid, lo), torch.where(up, hi, mid)
+
+
+def _frozen(lo, hi, lo_new, hi_new):
+    """Whether a bisection pass left every row's bracket as it was: the
+    pass is a function of (lo, hi) alone, so every later pass repeats it."""
+    return torch.equal(lo_new, lo) and torch.equal(hi_new, hi)
 
 
 def _proj_capped_simplex(w, k_val, n_bisect=60):
@@ -752,9 +770,10 @@ def _proj_capped_simplex(w, k_val, n_bisect=60):
     for _ in range(n_bisect):
         mid = 0.5 * (lo + hi)
         ssum = torch.clamp(w - mid[:, None], 0.0, 1.0).sum(dim=1)
-        too_big = ssum > k_val
-        lo = torch.where(too_big, mid, lo)
-        hi = torch.where(too_big, hi, mid)
+        lo_new, hi_new = _bisect_step(lo, mid, hi, ssum > k_val)
+        if _frozen(lo, hi, lo_new, hi_new):
+            break
+        lo, hi = lo_new, hi_new
     tau = 0.5 * (lo + hi)
     return torch.clamp(w - tau[:, None], 0.0, 1.0)
 
@@ -764,8 +783,10 @@ def _sum_k_largest(w, k_val):
     return srt[:, : int(k_val)].sum(dim=1)
 
 
-def _proj_sl_vec_batch(t0, w0, k_val, n_bisect=60):
-    """Project (t, w) onto {(t, w): sum of k largest w_i <= t}."""
+def _proj_sl_vec_batch_ref(t0, w0, k_val, n_bisect=60):
+    """Project (t, w) onto {(t, w): sum of k largest w_i <= t} — the plain
+    version. A bisection ends early only where every later pass would
+    change nothing."""
     sk = _sum_k_largest(w0, k_val)
     inside = sk <= t0
 
@@ -780,14 +801,55 @@ def _proj_sl_vec_batch(t0, w0, k_val, n_bisect=60):
     for _ in range(n_bisect):
         mid = 0.5 * (lo + hi)
         val, _ = h(mid)
-        pos = val > 0
-        lo = torch.where(pos, mid, lo)
-        hi = torch.where(pos, hi, mid)
+        lo_new, hi_new = _bisect_step(lo, mid, hi, val > 0)
+        if _frozen(lo, hi, lo_new, hi_new):
+            break
+        lo, hi = lo_new, hi_new
     mu = 0.5 * (lo + hi)
     _, w = h(mu)
     t = torch.where(inside, t0, t0 + mu)
     w = _where_rows(inside, w0, w)
     return t, w
+
+
+def _check_spectral(who, w0, *vecs):
+    """w0: float32 or float64 eigenvalue rows (k, n), n >= 1; each of vecs
+    (k,) of w0's type on w0's device."""
+    _check_rows(who, w0, width=None)
+    for name, t in zip(("t0", "v0"), vecs):
+        _check_like(who, name, t, w0, w0.shape[:1])
+
+
+def _proj_sl_vec_batch(t0, w0, k_val, inner_out=None, outer_out=None):
+    """Rows (t0 (k,), w0 (k, n)) onto {(t, w): sum of the k_val largest w_i
+    <= t}, k_val in 1..n; returns (t, w). On CUDA: the proj_sl_vec kernel
+    (csrc/spectral_proj.cu), one warp a cone. `inner_out` and `outer_out`,
+    int32 (k,) tensors, receive per row the capped simplex's bisection
+    passes and the evaluations of h(mu) it ran."""
+    _check_spectral("_proj_sl_vec_batch", w0, t0)
+    k, n = w0.shape
+    kk = int(k_val)
+    if kk != k_val or not 1 <= kk <= n:
+        raise ValueError(f"_proj_sl_vec_batch: k must be an integer in 1..{n}, got {k_val!r}")
+    dev = w0.device
+    if dev.type == "cpu":
+        return _proj_sl_vec_batch_ref(t0, w0, k_val)
+    if dev.type != "cuda":
+        raise ValueError(f"_proj_sl_vec_batch: unsupported device {dev}")
+    for counts in (inner_out, outer_out):
+        _check_counts("_proj_sl_vec_batch", counts, k, dev)
+    t0, w0 = t0.contiguous(), w0.contiguous()
+    t, w = torch.empty_like(t0), torch.empty_like(w0)
+    if k == 0:
+        return t, w
+    _launch("proj_sl_vec", dev, _cone_symbol("proj_sl_vec", w0.dtype, "spectral_proj"),
+            t0.data_ptr(), w0.data_ptr(), t.data_ptr(), w.data_ptr(), _ptr(inner_out),
+            _ptr(outer_out), k, n, kk)
+    _proj_sl_vec_batch.launches += 1
+    return t, w
+
+
+_proj_sl_vec_batch.launches = 0  # kernel launches since the last reset
 
 
 def _proj_sl_batch(z, nk):
@@ -803,13 +865,14 @@ def _proj_sl_batch(z, nk):
 # ---------------------------------------------------------------------------
 # Log-determinant cone: K = cl{(t, v, X): v > 0, X PSD, t <= v*logdet(X/v)}
 # (dim = sd_cone_size(n) + 2). Spectral reduction + nested bisection on the
-# 2-variable KKT system. Plain tensor code: (40 + 80) outer x (40 + 60)
-# inner passes (a kernel is queued in ROADMAP.md).
+# 2-variable KKT system. On CUDA the vector part is the proj_logdet_vec
+# kernel (C4).
 # ---------------------------------------------------------------------------
 
 
-def _proj_logdet_vec_batch(t0, v0, w0, n_outer=80):
-    """Project (t, v, w) onto cl{(t,v,w): v>0, w>0, t <= v*sum(log(w/v))}.
+def _proj_logdet_vec_batch_ref(t0, v0, w0, n_outer=80):
+    """Project (t, v, w) onto cl{(t,v,w): v>0, w>0, t <= v*sum(log(w/v))} —
+    the plain version.
 
     KKT with multiplier mu >= 0 of g = t - v*sum(log(w/v)) <= 0:
       t   = t0 - mu
@@ -822,17 +885,19 @@ def _proj_logdet_vec_batch(t0, v0, w0, n_outer=80):
       A: (t0, v0, w0) itself when already in the cone;
       C: the active-constraint KKT point with v > 0 (nested bisection);
       D: the projection onto the v = 0 facet {t <= 0, w >= 0}.
-    We return the feasible candidate with minimal distance. A growing loop
-    ends early only where every later pass would change nothing.
+    We return the feasible candidate with minimal distance. A loop ends
+    early only where every later pass would change nothing.
     """
     fn = float(w0.shape[1])
     tiny = _tiny(w0)
+    w0_sq = w0 * w0
 
     def solve_v(mu):
         """Inner 1-D bisection on phi(v) = v - v0 - mu*(slog(v) - n)."""
+        four_mu = 4.0 * mu[:, None]
 
         def slog_of(vv):
-            w = 0.5 * (w0 + torch.sqrt(w0 * w0 + 4.0 * mu[:, None] * vv[:, None]))
+            w = 0.5 * (w0 + torch.sqrt(w0_sq + four_mu * vv[:, None]))
             return (
                 torch.log(torch.clamp_min(w, tiny)).sum(dim=1)
                 - fn * torch.log(torch.clamp_min(vv, tiny)),
@@ -853,9 +918,10 @@ def _proj_logdet_vec_batch(t0, v0, w0, n_outer=80):
             mid = 0.5 * (lo + hi)
             slog, _ = slog_of(mid)
             phi = mid - v0 - mu * (slog - fn)
-            neg = phi < 0
-            lo = torch.where(neg, mid, lo)
-            hi = torch.where(neg, hi, mid)
+            lo_new, hi_new = _bisect_step(lo, mid, hi, phi < 0)
+            if _frozen(lo, hi, lo_new, hi_new):
+                break
+            lo, hi = lo_new, hi_new
         v = 0.5 * (lo + hi)
         slog, w = slog_of(v)
         return v, w, slog
@@ -877,9 +943,10 @@ def _proj_logdet_vec_batch(t0, v0, w0, n_outer=80):
     for _ in range(n_outer):
         mid = 0.5 * (lo + hi)
         h, _, _ = h_of(mid)
-        neg = h < 0
-        lo = torch.where(neg, mid, lo)
-        hi = torch.where(neg, hi, mid)
+        lo_new, hi_new = _bisect_step(lo, mid, hi, h < 0)
+        if _frozen(lo, hi, lo_new, hi_new):
+            break
+        lo, hi = lo_new, hi_new
     mu = 0.5 * (lo + hi)
     _, vC, wC = h_of(mu)
     tC = t0 - mu
@@ -911,6 +978,35 @@ def _proj_logdet_vec_batch(t0, v0, w0, n_outer=80):
     v = torch.where(inside, v0, v)
     w = _where_rows(inside, w0, w)
     return t, v, w
+
+
+def _proj_logdet_vec_batch(t0, v0, w0, inner_out=None, outer_out=None):
+    """Rows (t0 (k,), v0 (k,), w0 (k, n)) onto the logdet cone's vector form
+    cl{(t, v, w): v > 0, w > 0, t <= v sum(log(w / v))}; returns (t, v, w).
+    On CUDA: the proj_logdet_vec kernel (csrc/spectral_proj.cu), one warp a
+    cone. `inner_out` and `outer_out`, int32 (k,) tensors, receive per row
+    the evaluations of slog(v) and of h(mu) it ran."""
+    _check_spectral("_proj_logdet_vec_batch", w0, t0, v0)
+    dev = w0.device
+    if dev.type == "cpu":
+        return _proj_logdet_vec_batch_ref(t0, v0, w0)
+    if dev.type != "cuda":
+        raise ValueError(f"_proj_logdet_vec_batch: unsupported device {dev}")
+    k, n = w0.shape
+    for counts in (inner_out, outer_out):
+        _check_counts("_proj_logdet_vec_batch", counts, k, dev)
+    t0, v0, w0 = t0.contiguous(), v0.contiguous(), w0.contiguous()
+    t, v, w = torch.empty_like(t0), torch.empty_like(v0), torch.empty_like(w0)
+    if k == 0:
+        return t, v, w
+    _launch("proj_logdet_vec", dev, _cone_symbol("proj_logdet_vec", w0.dtype, "spectral_proj"),
+            t0.data_ptr(), v0.data_ptr(), w0.data_ptr(), t.data_ptr(), v.data_ptr(), w.data_ptr(),
+            _ptr(inner_out), _ptr(outer_out), k, n)
+    _proj_logdet_vec_batch.launches += 1
+    return t, v, w
+
+
+_proj_logdet_vec_batch.launches = 0  # kernel launches since the last reset
 
 
 def _proj_logdet_batch(z, nn):

@@ -26,6 +26,7 @@ problems, default 64) on the card, printing iterations and times.
 
 from __future__ import annotations
 
+import math
 import os
 import subprocess
 import sys
@@ -42,6 +43,15 @@ MIXED_K = {
 }
 MIXED_B, MIXED_SEED, MIXED_EPS = 64, 3000, 1e-4
 WIDE_B = 128
+# The spectral-cone batches of chip_smoke.py's phase 15: (a) D-optimal
+# experiment design (Boyd & Vandenberghe, Convex Optimization, 7.5), B
+# problems of n parameters and p candidate measurement vectors, solved in
+# f64 (in f32, scs_tpu and the port reach eps 1e-4 on few of them within
+# 20,000 iterations); (b) planted optima over both spectral cones, m = 840,
+# n = m // 3, f32.
+DOPT_B, DOPT_N, DOPT_P, DOPT_SEED = 64, 32, 256, 5150
+SPECTRAL_K = {"z": 4, "l": 32, "sl_n": [32, 16], "sl_k": [4, 3], "d": [16]}
+SPECTRAL_B, SPECTRAL_SEED = 64, 6000
 
 
 def wide_cone(seed=7, bounds=400, ep=200, ed=100, powers=100):
@@ -57,6 +67,70 @@ def wide_cone(seed=7, bounds=400, ep=200, ed=100, powers=100):
         "z": 100, "l": 500, "bu": bu.tolist(), "bl": bl.tolist(), "q": [50] * 20,
         "s": [32] * 4, "ep": ep, "ed": ed, "p": p.tolist(),
     }
+
+
+def dopt_cone(n, p):
+    """The cone of a D-optimal design's SCS form: Sum(lam) = 1, lam >= 0,
+    and one logdet cone of an n x n matrix."""
+    return {"z": 1, "l": p, "d": [n]}
+
+
+def dopt_problem(V):
+    """D-optimal experiment design over the candidates V (p, n): maximize
+    logdet(sum_i lam_i v_i v_i') subject to 1'lam = 1, lam >= 0, in SCS form
+    over x = (lam, t) with c = -e_t, rows in dopt_cone's order: the zero
+    row Sum(lam) = 1; s = lam >= 0; the logdet cone's (s_t, s_v, s_X) =
+    (t, 1, pack(sum_i lam_i v_i v_i')), packed as tests/oracle.py's
+    _pack_sym packs (lower triangle by columns, sqrt(2) off the diagonal).
+    Returns {"A": dense (m, p + 1), "b", "c"}, float64."""
+    p, n = V.shape
+    r, c = np.triu_indices(n)  # (j, i) of the packed entry (i, j), i >= j
+    scale = np.where(r == c, 1.0, np.sqrt(2.0))
+    packed = V[:, r] * V[:, c] * scale  # (p, n(n+1)/2): pack(v_i v_i') by rows
+    m = 1 + p + 2 + len(r)
+    A = np.zeros((m, p + 1))
+    b = np.zeros(m)
+    A[0, :p], b[0] = 1.0, 1.0
+    A[1 : 1 + p, :p] = -np.eye(p)
+    A[1 + p, p] = -1.0  # s_t = t
+    b[2 + p] = 1.0  # s_v = 1
+    A[3 + p :, :p] = -packed.T
+    cvec = np.zeros(p + 1)
+    cvec[p] = -1.0
+    return {"A": A, "b": b, "c": cvec}
+
+
+def gen_dopt_batch(B, n, p, seed):
+    """B D-optimal design problems, problem i over p candidates drawn
+    N(0, I_n) from RandomState(seed + i): (data {"A": float32 (B, m, p + 1),
+    "b", "c" float64}, V (B, p, n))."""
+    V = np.stack([np.random.RandomState(seed + i).randn(p, n) for i in range(B)])
+    probs = [dopt_problem(Vi) for Vi in V]
+    data = {"A": np.stack([d["A"] for d in probs]).astype(np.float32),
+            "b": np.stack([d["b"] for d in probs]), "c": np.stack([d["c"] for d in probs])}
+    return data, V
+
+
+def kiefer_wolfowitz_gap(V, lam):
+    """max_i v_i' X^-1 v_i - n at X = sum_i lam_i v_i v_i', lam clipped at 0
+    and renormalized: by the Kiefer-Wolfowitz theorem an upper bound of
+    logdet X* - logdet X(lam), 0 at the optimal design."""
+    lam = np.clip(np.asarray(lam, np.float64), 0.0, None)
+    lam = lam / lam.sum()
+    X = V.T @ (lam[:, None] * V)
+    return float(np.max(np.einsum("ij,ij->i", V @ np.linalg.inv(X), V)) - V.shape[1])
+
+
+def dopt_check(V, x):
+    """The design gates' numbers of a solution x = (lam, t), in f64:
+    |t - logdet X(lam)| / (1 + |t|) (inf where X(lam) is not positive
+    definite) and the Kiefer-Wolfowitz gap over n."""
+    p, n = V.shape
+    x = np.asarray(x, np.float64)
+    lam, t = x[:p], x[p]
+    sign, logdet = np.linalg.slogdet(V.T @ (lam[:, None] * V))
+    rel = abs(t - logdet) / (1 + abs(t)) if sign > 0 else np.inf
+    return rel, kiefer_wolfowitz_gap(V, lam) / n
 
 
 def _oracle():
@@ -128,10 +202,11 @@ def collect_mixed_batch(futures):
 
 def _check_one(args):
     """Host f64 check of one solution (worker-process entry point): the
-    residuals over the solver's criterion (pri, dual, gap), and the
-    distance of s from K and of y from K*, by the oracle's projections,
-    relative to 1 + the vector's norm."""
-    K, A, b, c, x, y, s, eps = args
+    residuals over the solver's criterion (pri, dual, gap), and, unless the
+    job says otherwise, the distance of s from K and of y from K*, by the
+    oracle's projections, relative to 1 + the vector's norm (0 when not
+    checked)."""
+    K, A, b, c, x, y, s, eps, cones = (*args, True)[:9]
     oracle = _oracle()
     A = np.asarray(A, np.float64) if isinstance(A, np.ndarray) else A.astype(np.float64)
     x, y, s = (np.asarray(v, np.float64) for v in (x, y, s))
@@ -140,26 +215,36 @@ def _check_one(args):
     pri = nrm(Ax + s - b) / (eps + eps * max(nrm(Ax), nrm(s), nrm(b)))
     dual = nrm(Aty + c) / (eps + eps * max(nrm(Aty), nrm(c)))
     gap = abs(c @ x + b @ y) / (eps + eps * max(abs(c @ x), abs(b @ y)))
+    if not cones:
+        return pri, dual, gap, 0.0, 0.0
     with np.errstate(over="ignore"):
         ds = nrm(s - oracle.proj_cone(s, K)) / (1 + nrm(s))
         dy = nrm(y - oracle.proj_dual_cone(y, K)) / (1 + nrm(y))
     return pri, dual, gap, ds, dy
 
 
-def check_solutions(K, data, results, eps, margin=5.0, pool=None, A_rows=None, cone_margin=50.0):
+def _check_jobs(K, data, results, eps, A_rows, cone_every):
+    A_rows = data["A"] if A_rows is None else A_rows
+    return [
+        (K, A_rows[i], data["b"][i], data["c"][i], r["x"], r["y"], r["s"], eps,
+         i % cone_every == 0)
+        for i, r in enumerate(results)
+    ]
+
+
+def check_solutions(K, data, results, eps, margin=5.0, pool=None, A_rows=None, cone_margin=50.0,
+                    cone_every=1):
     """Every solution's f64 residuals within margin x the solver's criterion,
     s within cone_margin x eps of K and y of K* (relative, by the oracle's
     projections; the returned s and y are iterates converged to eps, so
     they sit in the cones to a multiple of eps and not to rounding: the PSD
     blocks of scs_tpu's own f32 solutions of the mixed_cone cell are 2e-4
     off at eps 1e-4, those of the wide batch 1e-3). A_rows: the problems' matrices one by one (sparse, to
-    hand to a pool's workers), default the rows of data["A"]. Returns the
-    worst (pri, dual, gap, dist_s, dist_y); raises on a violation."""
-    A_rows = data["A"] if A_rows is None else A_rows
-    jobs = [
-        (K, A_rows[i], data["b"][i], data["c"][i], r["x"], r["y"], r["s"], eps)
-        for i, r in enumerate(results)
-    ]
+    hand to a pool's workers), default the rows of data["A"]. cone_every:
+    cone membership on every cone_every-th problem only (the residuals on
+    all). Returns the worst (pri, dual, gap, dist_s, dist_y); raises on a
+    violation."""
+    jobs = _check_jobs(K, data, results, eps, A_rows, cone_every)
     rows = list(pool.map(_check_one, jobs)) if pool is not None else [_check_one(j) for j in jobs]
     worst = np.max(np.asarray(rows), axis=0)
     for i, (pri, dual, gap, ds, dy) in enumerate(rows):
@@ -231,6 +316,68 @@ def box_case(B, nb, seed=0, per_row=False):
     return v, bl, bu
 
 
+def logdet_rows(k, n, seed=0):
+    """k rows (t0, v0, w0 (k, n)) for the logdet cone's vector projection,
+    float64: a seventh each inside the cone, in the polar cone (t0 > 0, w0 <
+    0, v0 <= t0 (n - sum log(t0 / |w0_i|)), below by a margin: minus a point
+    of the dual cone, so the answer is 0), past the v = 0 facet (v0 far
+    below 0, w0 >= 0, t0 <= 0: the facet's point is the answer), active (v0
+    > 0, w0 > 0, t0 above the boundary), v0 <= 0 (a fifth of them v0 = 0),
+    with negative eigenvalues, and at magnitudes 1e-3..1e3; eigenvalues in
+    random order."""
+    rng = np.random.RandomState(seed)
+    t0, v0, w0 = rng.randn(k) * 2.0, rng.randn(k), rng.randn(k, n) * 2.0
+    kind = np.arange(k) % 7
+    a, b = np.abs(rng.randn(k)), np.abs(rng.randn(k, n))
+    slog = lambda t, v, w: v * (np.log(w).sum(1) - n * np.log(v))  # noqa: E731
+    rows = {
+        0: (None, a + 0.1, b + 0.1),  # inside: t0 set below
+        1: (a + 0.1, (a + 0.1) * (n - np.log((a + 0.1)[:, None] / (b + 0.1)).sum(1)) - a - 0.1,
+            -b - 0.1),
+        2: (-a, -3.0 * (a + 1.0), b),
+        3: (None, a + 0.1, b + 0.1),  # active: t0 set below
+        4: (t0, np.where(np.arange(k) % 5 == 4, 0.0, -a), w0),
+        5: (t0, a + 0.1, w0),
+    }
+    for i, (t, v, w) in rows.items():
+        sel = kind == i
+        v0[sel], w0[sel] = v[sel], w[sel]
+        if t is not None:
+            t0[sel] = t[sel]
+    for i, sign in ((0, -1.0), (3, 1.0)):
+        sel = kind == i
+        t0[sel] = slog(None, v0[sel], w0[sel]) + sign * (np.abs(rng.randn(sel.sum())) + 0.01)
+    big = kind == 6
+    mag = 10.0 ** rng.uniform(-3, 3, k)
+    t0[big], v0[big], w0[big] = (x[big] * (mag[big] if x.ndim == 1 else mag[big, None])
+                                 for x in (t0, v0, w0))
+    return t0, v0, w0
+
+
+def sl_rows(k, n, kk, seed=0, ascending=False):
+    """k rows (t0, w0 (k, n)) for the sum-of-kk-largest cone's vector
+    projection, float64: a fifth each inside (t0 above the sum), active,
+    with ties (eigenvalues from a few integers), all negative with t0 far
+    below, and at magnitudes 1e-3..1e3; in random order, or ascending as
+    eigh returns them."""
+    rng = np.random.RandomState(seed)
+    w0 = rng.randn(k, n) * 2.0
+    kind = np.arange(k) % 5
+    ties = kind == 2
+    w0[ties] = rng.randint(-2, 3, (ties.sum(), n)).astype(np.float64)
+    neg = kind == 3
+    w0[neg] = -np.abs(w0[neg]) - 0.5
+    sk = np.sort(w0, 1)[:, ::-1][:, :kk].sum(1)
+    a = np.abs(rng.randn(k))
+    t0 = np.where(kind == 0, sk + a, np.where(neg, sk - 10.0 * (a + 1.0), sk - 2.0 * a - 0.1))
+    big = kind == 4
+    mag = 10.0 ** rng.uniform(-3, 3, k)
+    t0[big], w0[big] = t0[big] * mag[big], w0[big] * mag[big, None]
+    if ascending:
+        w0 = np.sort(w0, 1)
+    return t0, w0
+
+
 class _Recorder:
     """A wrapper in the place of `fn`: `keep` sees each call's tensors,
     then `fn` runs. `launches` is fn's own counter (fn counts through the
@@ -253,32 +400,50 @@ class _Recorder:
 
 
 class CaptureRows:
-    """The rows a solve hands the proj_exp, proj_pow and proj_box kernels:
-    inside `with CaptureRows(every) as cap:`, every `every`-th call of each
-    wrapper is copied (cap.exp: (call, v, sign); cap.pow: (call, v, a,
-    sign); cap.box: (call, v, bl, bu); tensors on the call's device). The
-    projector looks the wrappers up in ops.projections at every call, so
-    they are replaced there for the block; the copies launch no kernel of
-    theirs, and the launch counters count as before."""
+    """The rows a solve hands the cone kernels: inside `with
+    CaptureRows(every) as cap:`, every `every`-th call of each wrapper is
+    copied (cap.exp: (call, v, sign); cap.pow: (call, v, a, sign); cap.box:
+    (call, v, bl, bu); cap.logdet: (call, t0, v0, w0); cap.sl: (call, t0,
+    w0, kk); tensors on the call's device). The spectral wrappers count
+    their calls per width (and kk), so that each bucket of a cone is
+    copied. cap.calls: each wrapper's calls in the block. The projector
+    looks the wrappers up in ops.projections at every call, so they are
+    replaced there for the block; the copies launch no kernel of theirs,
+    and the launch counters count as before."""
 
     KINDS = {"exp": ("_proj_exp_batch", 2), "pow": ("_proj_pow_batch", 3),
-             "box": ("_proj_box", 3)}  # kind: (wrapper, tensors copied)
+             "box": ("_proj_box", 3), "logdet": ("_proj_logdet_vec_batch", 3),
+             "sl": ("_proj_sl_vec_batch", 3)}  # kind: (wrapper, arguments copied)
 
     def __init__(self, every=50):
-        self.every, self.exp, self.pow, self.box = every, [], [], []
+        self.every, self.exp, self.pow, self.box, self.logdet, self.sl = every, [], [], [], [], []
+        self.calls = {}
+
+    @staticmethod
+    def bucket(kind, snap):
+        """The bucket a copy belongs to: the spectral rows' width (and kk);
+        None for the other kinds."""
+        if kind == "logdet":
+            return snap[3].shape[1]
+        if kind == "sl":
+            return (snap[2].shape[1], snap[3])
+        return None
 
     def __enter__(self):
         from ..ops import projections as pr  # noqa: PLC0415
 
         self._saved = {kind: getattr(pr, name) for kind, (name, _) in self.KINDS.items()}
-        calls = dict.fromkeys(self.KINDS, 0)
+        calls, self.calls = {}, dict.fromkeys(self.KINDS, 0)
 
         def keeper(kind, n):
-            def keep(*tensors):
-                if calls[kind] % self.every == 0:
-                    copies = tuple(None if t is None else t.detach().clone() for t in tensors[:n])
-                    getattr(self, kind).append((calls[kind], *copies + (None,) * (n - len(copies))))
-                calls[kind] += 1
+            def keep(*args):
+                args = args[:n] + (None,) * (n - len(args[:n]))
+                key = (kind, self.bucket(kind, (None, *args)))
+                if calls.get(key, 0) % self.every == 0:
+                    copies = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+                    getattr(self, kind).append((calls.get(key, 0), *copies))
+                calls[key] = calls.get(key, 0) + 1
+                self.calls[kind] += 1
 
             return keep
 
@@ -294,22 +459,26 @@ class CaptureRows:
 
     def phases(self, kind):
         """{"early", "middle", "late"}: the second, the middle and the last
-        copy of `kind` ("exp", "pow" or "box"; the first call projects the
-        solver's starting point); and for each row count none of those has
-        (a bucket the batch was compacted to), "bucket": the middle copy at
-        that count."""
-        snaps = getattr(self, kind)
-        if not snaps:
-            return {}
-        out = {"early": snaps[min(1, len(snaps) - 1)], "middle": snaps[len(snaps) // 2],
-               "late": snaps[-1]}
-        by_rows = {}
-        for snap in snaps[1:]:
-            by_rows.setdefault(snap[1].shape[0], []).append(snap)
-        seen = {snap[1].shape[0] for snap in out.values()}
-        for rows, group in by_rows.items():
-            if rows not in seen:
-                out[f"bucket {rows}"] = group[len(group) // 2]
+        copy of `kind` (the first call projects the solver's starting
+        point), for each bucket of the spectral kinds (labelled with it);
+        and for each row count none of those has (a bucket the batch was
+        compacted to), "bucket": the middle copy at that count."""
+        out = {}
+        groups = {}
+        for snap in getattr(self, kind):
+            groups.setdefault(self.bucket(kind, snap), []).append(snap)
+        for key, snaps in groups.items():
+            tag = "" if key is None else f"n={key} " if kind == "logdet" else f"n, kk={key} "
+            mine = {f"{tag}early": snaps[min(1, len(snaps) - 1)],
+                    f"{tag}middle": snaps[len(snaps) // 2], f"{tag}late": snaps[-1]}
+            by_rows = {}
+            for snap in snaps[1:]:
+                by_rows.setdefault(snap[1].shape[0], []).append(snap)
+            seen = {snap[1].shape[0] for snap in mine.values()}
+            for rows, group in by_rows.items():
+                if rows not in seen:
+                    mine[f"{tag}bucket {rows}"] = group[len(group) // 2]
+            out.update(mine)
         return out
 
     def inputs(self, tag):
@@ -331,6 +500,21 @@ class CaptureRows:
             for ph, (c, v, a, sign) in self.phases("pow").items()
         ]
         return exp, box, pow_
+
+    def spectral_inputs(self, tag):
+        """The early, middle and late copies of each spectral bucket as
+        check_spectral_kernels' inputs (numpy float64): (logdet_inputs,
+        sl_inputs)."""
+        as_np = lambda t: t.double().cpu().numpy()  # noqa: E731
+        logdet = [
+            (f"{tag} {ph}, call {c}, {tuple(w0.shape)}", as_np(t0), as_np(v0), as_np(w0))
+            for ph, (c, t0, v0, w0) in self.phases("logdet").items()
+        ]
+        sl = [
+            (f"{tag} {ph}, call {c}, {tuple(w0.shape)}", as_np(t0), as_np(w0), kk)
+            for ph, (c, t0, w0, kk) in self.phases("sl").items()
+        ]
+        return logdet, sl
 
 
 # ---------------------------------------------------------------------------
@@ -422,6 +606,55 @@ def geometry_box(v, p, bl, bu, tol=1e-5, inner_tol=np.inf):
         bad.append(not inside or excess > min(tol, inner_tol))
         worst = max(worst, excess)
     return np.array(bad, bool), worst
+
+
+def _spectral_dist(args):
+    """The distance from one spectral row to the oracle's projection of it
+    (worker entry point): ("d", t0, v0, w0) or ("sl", t0, w0, kk), the row
+    given as the matrix diag(w0), whose packed form is isometric to
+    (t0, [v0,] w0)."""
+    kind, *row = args
+    oracle = _oracle()
+    with np.errstate(all="ignore"):
+        if kind == "d":
+            t0, v0, w0 = row
+            z = np.r_[t0, v0, oracle._pack_sym(np.diag(w0))]
+            p = oracle.proj_logdet(z, len(w0))
+        else:
+            t0, w0, kk = row
+            z = np.r_[t0, oracle._pack_sym(np.diag(w0))]
+            p = oracle.proj_sumlargest(z, len(w0), kk)
+    return float(np.linalg.norm(p - z))
+
+
+def geometry_spectral(kind, row, p, ref_dist, kk=None, tol=1e-5, inner_tol=np.inf):
+    """Rows projected onto the logdet cone (kind "d": row and p (t, v, w))
+    or the sum-of-kk-largest cone ("sl": (t, w)), in f64: p in K (the
+    oracle's _logdet_feasible, or the sum of the kk largest w_i at most t)
+    at tolerance tol, and p no farther from the row than the oracle's
+    projection (ref_dist, _spectral_dist's) by min(tol, inner_tol), all
+    relative to 1 + |row|_inf. Returns (the mask of rows that fail, worst
+    excess distance)."""
+    oracle = _oracle()
+    row = [np.asarray(x, np.float64) for x in row]
+    p = [np.asarray(x, np.float64) for x in p]
+    vecs = lambda r: np.concatenate([x[:, None] if x.ndim == 1 else x for x in r], 1)  # noqa: E731
+    v_all, p_all = vecs(row), vecs(p)
+    scale = 1.0 + np.abs(v_all).max(1)
+    excess = (np.linalg.norm(p_all - v_all, axis=1) - ref_dist) / scale
+    bad = []
+    with np.errstate(all="ignore"):
+        for i in range(len(scale)):
+            q = p_all[i] / scale[i]
+            if not np.all(np.isfinite(q)):
+                bad.append(True)
+                continue
+            if kind == "d":
+                member = oracle._logdet_feasible(q[0], q[1], q[2:], float(len(q) - 2), tol)
+            else:
+                member = oracle.sum_k_largest(q[1:], kk) <= q[0] + tol
+            bad.append(not member or excess[i] > min(tol, inner_tol))
+    return np.array(bad, bool), float(excess.max()) if len(excess) else 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -761,6 +994,207 @@ def check_cone_kernels(hbm_bytes_per_s, peak_flops, exp_sizes=EXP_SIZES, pow_siz
     return report
 
 
+# C4 / C5 (csrc/spectral_proj.cu). Operations per pass, counted from the
+# plain versions' arithmetic lines (a log, sqrt or division one operation):
+# the logdet cone's slog(v) per eigenvalue w0^2, (4 mu) v, +, sqrt, +, *0.5,
+# max, log and the sum's add, and per pass the midpoint, the log of v and
+# phi with its compare and select; per h(mu) its midpoint, v slog - t0 + mu
+# and the select. The sum-of-largest cone's capped-simplex pass per
+# eigenvalue a subtract, the clamp and the sum's add, per pass the midpoint,
+# compare and select; per h(mu) per eigenvalue the division, the clamp,
+# mu y, w0 - mu y, the sort's log2(n) compares and the sum's add. The
+# serial floor: a cone's passes in a row, each at least LD_CHAIN_OPS /
+# SL_CHAIN_OPS dependent operations (its compare waits for a butterfly of
+# five shuffles and adds) at CHAIN_CYCLES cycles each at the card's highest
+# SM clock.
+LD_OPS_PER_ELEMENT, LD_OPS_PER_INNER, LD_OPS_PER_OUTER = 9, 12, 8
+SL_OPS_PER_ELEMENT, SL_OPS_PER_INNER, SL_OPS_PER_ELEMENT_OUTER = 4, 5, 9
+LD_CHAIN_OPS, SL_CHAIN_OPS, CHAIN_CYCLES = 27, 18, 4
+# (rows, n) cases of the logdet kernel and (rows, n, kk, ascending) of the
+# sum-of-largest one: n in 1, 2, 31, 32, 33 (k in 1 and n - 1), the shapes
+# phase 15 hands them (ascending, as eigh returns them), the (16, 6) and
+# (16, 8) of the plain versions' first timing, and a row past the 256
+# eigenvalues kept in registers
+LOGDET_CASES = ((70, 1), (70, 2), (70, 31), (70, 33), (64, 32), (64, 16), (16, 6), (7, 257))
+SL_CASES = (
+    (70, 1, 1, False), (70, 2, 1, False), (70, 31, 1, False), (70, 31, 30, False),
+    (70, 32, 1, False), (70, 32, 31, False), (70, 33, 1, False), (70, 33, 32, False),
+    (64, 32, 4, True), (64, 16, 3, True), (16, 8, 3, False), (5, 257, 128, False),
+)
+SPECTRAL_REPORT_AT = {"proj_logdet_vec": (64, 32), "proj_sl_vec": (64, 32, 4)}
+GEOMETRY_MAX_N = 64  # the oracle's SLSQP on a wider row takes minutes
+
+
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def _spectral_plain(args):
+    """The plain version of C4 ("d": rows (t0, v0, w0)) or C5 ("sl": (t0,
+    w0), kk) on the CPU, in the rows' own type (worker-process entry
+    point): its answer as numpy arrays."""
+    from ..ops import projections as pr  # noqa: PLC0415
+
+    kind, rows, kk = args
+    torch.set_num_threads(1)
+    row = [torch.as_tensor(x) for x in rows]
+    out = (pr._proj_logdet_vec_batch_ref(*row) if kind == "d"
+           else pr._proj_sl_vec_batch_ref(*row, kk))
+    return [x.numpy() for x in out]
+
+
+def check_spectral_kernels(hbm_bytes_per_s, peak_flops, clock_hz, logdet_cases=LOGDET_CASES,
+                           sl_cases=SL_CASES, report_at=None, geometry_rows=4, log=print,
+                           logdet_inputs=(), sl_inputs=(), dtypes=(torch.float32, torch.float64),
+                           pool=None):
+    """proj_logdet_vec (C4) and proj_sl_vec (C5) against their plain
+    versions, f32 and f64: the row-wise limit KERNEL_TOL (at most STRAY_ROWS
+    of the rows past it, none past STRAY_TOL), a bit-equal repeat, and the
+    geometry of the kernel's answer in f64 on the host on up to
+    `geometry_rows` rows of a case of n <= GEOMETRY_MAX_N
+    (geometry_spectral against the oracle's projection; it must hold
+    wherever it holds for the plain version's answer). With a pool, the
+    plain version runs on the CPU in its workers (the same function on the
+    same rows, in the same type; on the card one call takes 0.2-16 s, the
+    launches of its passes), beside the oracle's projections, every case
+    submitted before any is read; without one, on the card. The kernel's
+    device time from CUDA-graph replays; the plain version's on the card
+    from CUDA events around one call at the shapes of `report_at` (default
+    SPECTRAL_REPORT_AT, f32), where it is reported; the bound: the larger
+    of the bytes (each row read and written once), the operations of the
+    passes this run's rows needed (the kernel's counts: its exits are
+    exact) and the serial floor of the longest row. Beside the synthetic
+    cases, given inputs: `logdet_inputs` (label, t0, v0, w0) and
+    `sl_inputs` (label, t0, w0, kk), numpy float64, such as the rows a
+    solve handed the kernels (CaptureRows). Returns {name: {"max_abs_err",
+    "ms", "plain_ms", "bound_ms", "bound_by", "chain_ms", "shape", "inner",
+    "outer", "rows"}} at the report shapes."""
+    from ..ops import projections as pr  # noqa: PLC0415
+    from .gemv_proto import time_graph_ms  # noqa: PLC0415
+
+    report_at = SPECTRAL_REPORT_AT if report_at is None else report_at
+    dev = torch.device("cuda")
+    report, pending = {}, []
+
+    def run(name, label, dtype, row_np, kk, geo_tol, key):
+        k, n = row_np[-1].shape
+        item = 4 if dtype == torch.float32 else 8
+        kind = "d" if kk is None else "sl"
+        row = [torch.as_tensor(x, dtype=dtype, device=dev) for x in row_np]
+        extra = () if kk is None else (kk,)
+        kern = pr._proj_logdet_vec_batch if kk is None else pr._proj_sl_vec_batch
+        plain = pr._proj_logdet_vec_batch_ref if kk is None else pr._proj_sl_vec_batch_ref
+        inner, outer = (torch.zeros(k, dtype=torch.int32, device=dev) for _ in range(2))
+        out_k = kern(*row, *extra, inner_out=inner, outer_out=outer)
+        again = kern(*row, *extra)
+        if not all(torch.equal(a, b) for a, b in zip(out_k, again)):
+            raise AssertionError(f"{name} {label} {dtype}: a repeated launch differs")
+        if not all(bool(torch.isfinite(x).all()) for x in out_k):
+            raise AssertionError(f"{name} {label} {dtype}: the kernel returned a non-finite value")
+        host = lambda out: [x.cpu().numpy() for x in out]  # noqa: E731
+        p_ms = None
+        if key or pool is None:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out_p = plain(*row, *extra)
+            end.record()
+            end.synchronize()
+            p_ms, out_p = start.elapsed_time(end), host(out_p)
+        else:
+            out_p = pool.submit(_spectral_plain, (kind, host(row), kk))
+        k_ms = time_graph_ms(lambda: kern(*row, *extra), reps=5, inner=5)
+        n_in, n_out = int(inner.sum()), int(outer.sum())
+        if kk is None:
+            ops = n_in * (n * LD_OPS_PER_ELEMENT + LD_OPS_PER_INNER) + n_out * LD_OPS_PER_OUTER
+            n_bytes, chain_ops = 2 * k * (n + 2) * item, LD_CHAIN_OPS
+        else:
+            per_outer = n * (SL_OPS_PER_ELEMENT_OUTER + math.ceil(math.log2(max(n, 2))))
+            ops = n_in * (n * SL_OPS_PER_ELEMENT + SL_OPS_PER_INNER) + n_out * per_outer
+            n_bytes, chain_ops = 2 * k * (n + 1) * item, SL_CHAIN_OPS
+        chain_ms = int(inner.max()) * chain_ops * CHAIN_CYCLES / clock_hz * 1e3
+        bound = _bound_ms(n_bytes, ops, dtype, hbm_bytes_per_s, peak_flops)
+        if chain_ms > bound[0]:
+            bound = (chain_ms, "the serial chain")
+        sub = min(k, geometry_rows) if n <= GEOMETRY_MAX_N else 0
+        rows64 = [x[:sub].double().cpu().numpy() for x in row]
+        jobs = [(kind, *r) for r in zip(*rows64)] if kk is None else [
+            (kind, t, w, kk) for t, w in zip(*rows64)]
+        refs = [pool.submit(_spectral_dist, j) for j in jobs] if pool is not None else [
+            _spectral_dist(j) for j in jobs]
+        pending.append(dict(
+            name=name, label=label, dtype=dtype, kind=kind, kk=kk, key=key, k=k, rows=host(row),
+            out_k=host(out_k), out_p=out_p, refs=refs, rows64=rows64, geo_tol=geo_tol,
+            passes=(f"passes: inner {n_in} in all, at most {int(inner.max())} a row, outer "
+                    f"{n_out}, at most {int(outer.max())} a row"),
+            timing=(f"kernel {k_ms:.4f} ms (graph replays), plain "
+                    + ("on the host" if p_ms is None else f"{p_ms:.1f} ms") + f", bound "
+                    f"{bound[0]:.6f} ms by {bound[1]} (serial chain {chain_ms:.6f} ms)"),
+            record={"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                    "chain_ms": chain_ms, "shape": label, "inner": n_in, "outer": n_out,
+                    "rows": k}))
+
+    for dtype in dtypes:
+        f32 = dtype == torch.float32
+        geo_tol = 1e-4 if f32 else 3e-6
+        for k, n in logdet_cases:
+            rows = logdet_rows(k, n, seed=k + n)
+            run("proj_logdet_vec", f"(k={k}, n={n})", dtype, rows, None, geo_tol,
+                f32 and (k, n) == tuple(report_at["proj_logdet_vec"]))
+        for label, *rows in logdet_inputs:
+            run("proj_logdet_vec", label, dtype, rows, None, geo_tol, False)
+        for k, n, kk, asc in sl_cases:
+            rows = sl_rows(k, n, kk, seed=k + n + kk, ascending=asc)
+            run("proj_sl_vec", f"(k={k}, n={n}, kk={kk}{', ascending' if asc else ''})", dtype,
+                rows, kk, geo_tol, f32 and (k, n, kk) == tuple(report_at["proj_sl_vec"]))
+        for label, t0, w0, kk in sl_inputs:
+            run("proj_sl_vec", label, dtype, (t0, w0), kk, geo_tol, False)
+
+    # the plain versions' answers and the oracle's projections, once every
+    # case is under way
+    for c in pending:
+        who, dtype = f"{c['name']} {c['label']} {c['dtype']}", c["dtype"]
+        out_p = c["out_p"] if isinstance(c["out_p"], list) else c["out_p"].result()
+        flat = lambda out: np.concatenate(  # noqa: E731
+            [np.asarray(x, np.float64).reshape(c["k"], -1) for x in out], 1)
+        diff = np.abs(flat(c["out_k"]) - flat(out_p))
+        rows_err = diff.max(1) / np.maximum(np.abs(flat(c["rows"])).max(1), 1.0)
+        err, n_stray = float(rows_err.max()), int((rows_err > KERNEL_TOL[dtype]).sum())
+        abs_err = float(diff.max())
+        if n_stray > STRAY_ROWS * c["k"] or not err <= STRAY_TOL[dtype]:
+            raise AssertionError(
+                f"{who}: kernel disagrees with the plain version: {n_stray} of {c['k']} rows over "
+                f"{KERNEL_TOL[dtype]:g} of max(1, |row|), worst {err:.3e}")
+        geo = ""
+        if c["refs"]:
+            sub = len(c["refs"])
+            ref = np.array([r.result() if pool is not None else r for r in c["refs"]])
+            cut = lambda out: [np.asarray(x[:sub], np.float64) for x in out]  # noqa: E731
+            args = (c["kind"], c["rows64"])
+            tols = (c["kk"], c["geo_tol"], INNER_TOL[dtype])
+            bad_k, worst = geometry_spectral(*args, cut(c["out_k"]), ref, *tols)
+            bad_p, _ = geometry_spectral(*args, cut(out_p), ref, *tols)
+            if (bad_k & ~bad_p).any():
+                raise AssertionError(
+                    f"{who}: {int((bad_k & ~bad_p).sum())} of {sub} rows of the kernel's answer "
+                    f"fail cone membership or lie farther from the row than the oracle's "
+                    f"projection by more than {min(c['geo_tol'], INNER_TOL[dtype]):g} where the "
+                    f"plain version's pass; worst excess {worst:.3e}")
+            geo = (f"; f64 geometry on {sub} rows: in K, no farther than the oracle's projection "
+                   f"(worst excess {worst:.2e} of 1 + |row|) but {int((bad_k & bad_p).sum())} "
+                   f"where the plain version's fails too")
+        log(f"[3] {who[:-len(str(dtype))]}{str(dtype)[6:]}: max |kernel - plain| {err:.3e} of "
+            f"max(1, |row|), {n_stray} rows over {KERNEL_TOL[dtype]:g} (absolute {abs_err:.3e}), "
+            f"repeat bit-equal{geo}; {c['passes']}; {c['timing']}")
+        if c["key"]:
+            report[c["name"]] = {"max_abs_err": abs_err, **c["record"]}
+    return report
+
+
 def check_plain_on_card(log=print):
     """Every projection left as plain tensor code, on the card against the
     same function on the CPU, both in f64 (so that a difference is the
@@ -781,8 +1215,6 @@ def check_plain_on_card(log=print):
         ("cs n=6 (64, 36)", lambda z: pr._proj_csd_batch(z, 6), (64, 36)),
         ("ell1 n=40 (64, 41)", pr._proj_ell1_batch, (64, 41)),
         ("nuc 8x5 (64, 41)", lambda z: pr._proj_nuc_batch(z, (8, 5)), (64, 41)),
-        ("sl n=8 k=3 (16, 37)", lambda z: pr._proj_sl_batch(z, (8, 3)), (16, sd(8) + 1)),
-        ("d n=6 (16, 23)", lambda z: pr._proj_logdet_batch(z, 6), (16, sd(6) + 2)),
     ]
     for label, fn, shape in cases:
         z = torch.as_tensor(rng.randn(*shape) * 2.0)
