@@ -38,15 +38,19 @@ Phases, one line each; any failure raises and exits nonzero:
      9 and 10 handed the three kernels early, in the middle and late in
      their solves); the spectral-cone kernels C4 proj_logdet_vec and C5
      proj_sl_vec (csrc/spectral_proj.cu: the logdet and sum-of-k-largest
-     cones' vector parts after eigh, one warp a cone), f32 and f64, on rows
-     in every regime (inside, polar, on the v = 0 facet, active, v0 <= 0,
+     cones' vector parts after eigh, a cluster of two blocks a cone, its
+     bisections multisected across warps and lane groups), f32 and f64, on rows in
+     every regime (inside, polar, on the v = 0 facet, active, v0 <= 0,
      negative eigenvalues, ties, unsorted), at n = 1, 2, 31, 32, 33 (k = 1
-     and n - 1), past the 256 eigenvalues kept in registers, and at the
-     shapes phase 15 hands them: the stated tolerance, a bit-equal repeat,
-     the f64 geometry against the oracle's projection, the passes a row ran,
-     device ms from graph replays beside the plain version and the bound
-     (the same checks run after phase 15 on the rows its solves handed C4
-     and C5); and every projection left as plain tensor code on the card
+     and n - 1), at each capacity of the kernels' layouts and one past it
+     (8, 16, 32, 64, 128, 256 eigenvalues; past 256 the memory path), at
+     row counts the launch does not tile, and at the shapes phase 15 hands
+     them: the stated tolerance, a bit-equal repeat, the f64 geometry
+     against the oracle's projection, the kernel's serial passes a row and
+     the plain map's, device ms from graph replays beside the plain
+     version, the roofline bound of the plain algorithm's work and the
+     kernel's serial floor (the same checks run after phase 15 on the rows
+     its solves handed C4 and C5); and every projection left as plain tensor code on the card
      against the CPU in f64, with the library's batched eigh timed per
      shape;
   4. the main path: SCS(...).solve() under solver_strategy="bell" on the
@@ -1084,9 +1088,10 @@ def phase_kernels_cones():
 def phase_kernels_spectral():
     """C4 and C5 (proj_logdet_vec, proj_sl_vec) against their plain
     versions (mixed_cone.check_spectral_kernels: rows in every regime, n in
-    1, 2, 31, 32, 33 and past 256, the shapes phase 15 hands them; the
-    stated tolerance, a bit-equal repeat, the f64 geometry against the
-    oracle's projection in worker processes)."""
+    1, 2, 31, 32, 33, the edges of the kernels' layouts and past 256, the
+    shapes phase 15 hands them; the stated tolerance, a bit-equal repeat,
+    the f64 geometry against the oracle's projection in worker processes;
+    the serial passes, the roofline bound and the serial floor)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2233,13 +2238,17 @@ def main():
                   (spectral_report[kname]["bound_ms"], spectral_report[kname]["bound_by"]), None,
                   shape=spectral_report[kname]["shape"] + " f32",
                   chain_ms=spectral_report[kname]["chain_ms"],
-                  passes_inner=spectral_report[kname]["inner"],
-                  passes_outer=spectral_report[kname]["outer"],
+                  **{f"passes_{key}": spectral_report[kname][key]
+                     for key in ("inner", "outer", "inner_max", "outer_max", "plain_inner",
+                                 "plain_outer", "plain_inner_max", "plain_outer_max")},
                   note="launches: phase 15's two solves, (a) + (b). ms: device time from "
                        "CUDA-graph replays; plain_ms: one call of the plain version, CUDA events. "
-                       "bound_ms: the larger of the bytes, the operations of the passes the "
-                       "rows ran (the kernel's exits are exact) and the longest row's serial "
-                       "chain (chain_ms). No Pallas kernel existed: XLA fused these fori_loops "
+                       "bound_ms: the roofline of the plain algorithm's work on these rows, the "
+                       "larger of the bytes and the operations of the passes the rows need on "
+                       "the plain map (passes_plain_*). chain_ms: the kernel's serial floor, its "
+                       "longest row's inner passes (passes_inner_max) at its pass's dependent "
+                       "operations. passes_*: the kernel's serial passes, in all and at most a "
+                       "row. No Pallas kernel existed: XLA fused these fori_loops "
                        "into the solver's program. No single PyTorch call computes it.")
             for kname, wrapper, replaces in (
                 ("proj_logdet_vec", "_proj_logdet_vec_batch", "scs_tpu/ops/projections.py:580"),

@@ -55,6 +55,11 @@ class LinearSolver(enum.Enum):
     PALLAS_CG = "pallas_cg"
 
 
+# "auto" phase timers (SCS._pipelined_loop): rounds are timed once a solve
+# is past this many seconds, R rounds at each stride
+PHASE_SAMPLE_AFTER = 0.3
+PHASE_SAMPLE_ROUNDS = 4
+
 _DIRECT = {
     LinearSolver.QDLDL,
     LinearSolver.MKL,
@@ -435,6 +440,7 @@ class SCS:
             )
 
         self._measured_phases = None
+        self._sampling_time = 0.0
         self._last_state = state
         try:
             if stg.phase_timing == "always":
@@ -448,7 +454,8 @@ class SCS:
             if csv is not None:
                 csv.close()
 
-        solve_time = time.perf_counter() - t0
+        # the "auto" timers' rounds are not the solve's time
+        solve_time = time.perf_counter() - t0 - self._sampling_time
         out = self._build_solution(state, solve_time, interrupted)
         if verbose:
             print_footer(out["info"])
@@ -458,12 +465,34 @@ class SCS:
         """Host loop of chunks (check_interval iterations and one check
         each) until termination, max_iters or the time limit. A
         KeyboardInterrupt lands between device calls and maps to the
-        SIGINT status, like the reference's ctrlc.c handler."""
+        SIGINT status, like the reference's ctrlc.c handler. Under "auto"
+        timers, once the solve is verbose or past PHASE_SAMPLE_AFTER
+        seconds, one round of the instrumented sequence is timed after
+        chunks 1..R, then at a stride that doubles every R scheduled chunks
+        (R = PHASE_SAMPLE_ROUNDS), each standing for its stride's chunks
+        (Core.phase_sample): O(R log chunks) rounds spread over the whole
+        solve, their time left out of the solve's. The schedule counts
+        chunks, so the ranks of a sharded solve take their rounds
+        together."""
+        sampling = stg.phase_timing == "auto"
+        core._phase_samples = []
+        chunk, at, stride, points, on = 0, 1, 1, 0, False
         while True:
             state = core._chunk(state, mats)
             self._last_state = state
             done = state.status != info_mod.UNFINISHED or state.it >= stg.max_iters
-            el = time.perf_counter() - t0
+            el = time.perf_counter() - t0 - self._sampling_time
+            chunk += 1
+            if sampling and chunk == at:
+                on = on or self._rank0(stg.verbose or el > PHASE_SAMPLE_AFTER)
+                if on:
+                    ts = time.perf_counter()
+                    core.phase_sample(state, mats, stride)
+                    self._sampling_time += time.perf_counter() - ts
+                points += 1
+                if points % PHASE_SAMPLE_ROUNDS == 0:
+                    stride *= 2
+                at += stride
             if verbose or csv is not None:
                 # ONE device read per chunk
                 self._log_check(self._probe_values(state), el, verbose, csv)
@@ -654,7 +683,9 @@ class SCS:
         stg = self.stg
         if self._measured_phases is not None:
             lin_sys_time, cone_time, accel_time = self._measured_phases
-        elif stg.phase_timing == "auto" and (stg.verbose or self._rank0(solve_time > 0.3)):
+        elif stg.phase_timing == "auto" and (
+            stg.verbose or self._rank0(solve_time > PHASE_SAMPLE_AFTER)
+        ):
             pt = core.phase_times([self._state0, state], mats)
             # each iteration does one linear projection + one cone
             # projection; each AA trial adds a candidate solve + safeguard

@@ -53,6 +53,7 @@ from .dense import _launch
 
 # fixed iteration counts of the scalar iterations (scs_tpu's)
 EXP_NEWTON_ITERS = 40
+LOGDET_V_BISECTIONS = 60  # the logdet cone's root in v, as scs_tpu's
 EXP_DOUBLINGS = 30
 EXP_BISECTIONS = 64
 POW_NEWTON_ITERS = 40
@@ -763,17 +764,33 @@ def _frozen(lo, hi, lo_new, hi_new):
     return torch.equal(lo_new, lo) and torch.equal(hi_new, hi)
 
 
-def _proj_capped_simplex(w, k_val, n_bisect=60):
-    """Project rows of w onto {y: 0 <= y <= 1, sum(y) = k}."""
+def _still_moving(live, lo, hi, lo_new, hi_new):
+    """Rows whose bracket every bisection pass so far has moved: a row's
+    bracket, once a pass leaves it as it was, stays so (the plain map's
+    count of a row's passes is the passes before it froze)."""
+    return live & ((lo_new != lo) | (hi_new != hi))
+
+
+def _proj_capped_simplex(w, k_val, n_bisect=60, passes=None):
+    """Project rows of w onto {y: 0 <= y <= 1, sum(y) = k}. `passes`, an
+    int64 (k,) tensor, receives per row the bisection passes before its
+    bracket froze."""
     lo = w.amin(dim=1) - 1.0
     hi = w.amax(dim=1)
+    live = torch.ones_like(lo, dtype=torch.bool)
+    moved = torch.zeros_like(lo, dtype=torch.int64)
     for _ in range(n_bisect):
         mid = 0.5 * (lo + hi)
         ssum = torch.clamp(w - mid[:, None], 0.0, 1.0).sum(dim=1)
         lo_new, hi_new = _bisect_step(lo, mid, hi, ssum > k_val)
+        if passes is not None:
+            live = _still_moving(live, lo, hi, lo_new, hi_new)
+            moved += live
         if _frozen(lo, hi, lo_new, hi_new):
             break
         lo, hi = lo_new, hi_new
+    if passes is not None:
+        passes.copy_(moved)
     tau = 0.5 * (lo + hi)
     return torch.clamp(w - tau[:, None], 0.0, 1.0)
 
@@ -783,30 +800,70 @@ def _sum_k_largest(w, k_val):
     return srt[:, : int(k_val)].sum(dim=1)
 
 
-def _proj_sl_vec_batch_ref(t0, w0, k_val, n_bisect=60):
+class _PlainCounts:
+    """Per row, the passes a plain version's nested bisections needed, for
+    its `counts` output: each evaluation of the outer function that the
+    row's answer needs (tally(needed, inner passes, inner bisection
+    passes)) adds one outer pass, its inner passes, and raises the most
+    inner bisection passes."""
+
+    def __init__(self, like):
+        zero = lambda: torch.zeros_like(like, dtype=torch.int64)  # noqa: E731
+        self.outer, self.inner, self.outer_bisect, self.inner_bisect = (zero() for _ in range(4))
+
+    def tally(self, needed, inner, inner_bisect):
+        self.outer += needed
+        self.inner += torch.where(needed, inner, 0)
+        self.inner_bisect = torch.maximum(self.inner_bisect, torch.where(needed, inner_bisect, 0))
+
+    def report(self, counts, inside):
+        """Into the dict `counts`, 0 for the rows already inside: their
+        answer depends on no pass."""
+        for key in ("outer", "inner", "outer_bisect", "inner_bisect"):
+            counts[key] = torch.where(inside, 0, getattr(self, key))
+
+
+def _proj_sl_vec_batch_ref(t0, w0, k_val, n_bisect=60, counts=None):
     """Project (t, w) onto {(t, w): sum of k largest w_i <= t} — the plain
     version. A bisection ends early only where every later pass would
-    change nothing."""
+    change nothing. `counts`, a dict, receives per row (int64 (k,)) the
+    plain map's passes, those before each bracket froze (0 for a row
+    already inside): "outer" the evaluations of h(mu) (the bisection's and
+    the final one), "inner" the capped simplex's bisection passes they
+    need, "outer_bisect" the outer bisection's passes and "inner_bisect"
+    the most any capped simplex took. The bisections cut at a row's
+    "outer_bisect" / "inner_bisect" give its answer bit for bit."""
     sk = _sum_k_largest(w0, k_val)
     inside = sk <= t0
+    tally = _PlainCounts(t0) if counts is not None else None
+    passes = torch.zeros_like(t0, dtype=torch.int64) if counts is not None else None
 
     def h(mu):
-        y = _proj_capped_simplex(w0 / torch.clamp_min(mu, _tiny(mu))[:, None], k_val)
+        y = _proj_capped_simplex(w0 / torch.clamp_min(mu, _tiny(mu))[:, None], k_val,
+                                 passes=passes)
         w = w0 - mu[:, None] * y
         return _sum_k_largest(w, k_val) - t0 - mu, w
 
     # mu in [0, ub]: at mu = ub = (sk - t0) (clipped positive), h(ub) <= 0
     lo = torch.zeros_like(t0)
     hi = torch.clamp_min(sk - t0, 1e-12)
+    live = torch.ones_like(inside)
     for _ in range(n_bisect):
         mid = 0.5 * (lo + hi)
         val, _ = h(mid)
         lo_new, hi_new = _bisect_step(lo, mid, hi, val > 0)
+        if tally is not None:
+            live = _still_moving(live, lo, hi, lo_new, hi_new)
+            tally.outer_bisect += live
+            tally.tally(live, passes, passes)
         if _frozen(lo, hi, lo_new, hi_new):
             break
         lo, hi = lo_new, hi_new
     mu = 0.5 * (lo + hi)
     _, w = h(mu)
+    if tally is not None:
+        tally.tally(torch.ones_like(inside), passes, passes)
+        tally.report(counts, inside)
     t = torch.where(inside, t0, t0 + mu)
     w = _where_rows(inside, w0, w)
     return t, w
@@ -823,9 +880,11 @@ def _check_spectral(who, w0, *vecs):
 def _proj_sl_vec_batch(t0, w0, k_val, inner_out=None, outer_out=None):
     """Rows (t0 (k,), w0 (k, n)) onto {(t, w): sum of the k_val largest w_i
     <= t}, k_val in 1..n; returns (t, w). On CUDA: the proj_sl_vec kernel
-    (csrc/spectral_proj.cu), one warp a cone. `inner_out` and `outer_out`,
-    int32 (k,) tensors, receive per row the capped simplex's bisection
-    passes and the evaluations of h(mu) it ran."""
+    (csrc/spectral_proj.cu), a cluster of two blocks a cone, its bisections
+    multisected across warps and lane groups. `inner_out` and `outer_out`,
+    int32 (k,) tensors, receive per row the kernel's serial passes: the
+    capped simplex's along the cone's chain, and the passes of the root in
+    mu with its final evaluation."""
     _check_spectral("_proj_sl_vec_batch", w0, t0)
     k, n = w0.shape
     kk = int(k_val)
@@ -870,7 +929,7 @@ def _proj_sl_batch(z, nk):
 # ---------------------------------------------------------------------------
 
 
-def _proj_logdet_vec_batch_ref(t0, v0, w0, n_outer=80):
+def _proj_logdet_vec_batch_ref(t0, v0, w0, n_outer=80, counts=None):
     """Project (t, v, w) onto cl{(t,v,w): v>0, w>0, t <= v*sum(log(w/v))} —
     the plain version.
 
@@ -887,13 +946,24 @@ def _proj_logdet_vec_batch_ref(t0, v0, w0, n_outer=80):
       D: the projection onto the v = 0 facet {t <= 0, w >= 0}.
     We return the feasible candidate with minimal distance. A loop ends
     early only where every later pass would change nothing.
+
+    `counts`, a dict, receives per row (int64 (k,)) the plain map's passes,
+    those each row needs (0 for a row already inside): "outer" the
+    evaluations of h(mu) (growth until the root is bracketed, the
+    bisection's passes before its bracket froze, the final one), "inner"
+    the evaluations of slog(v) they need (the same three parts of each
+    root in v), "outer_bisect" the outer bisection's passes and
+    "inner_bisect" the most any root in v took. The bisections cut at a
+    row's "outer_bisect" / "inner_bisect" give its answer bit for bit.
     """
     fn = float(w0.shape[1])
     tiny = _tiny(w0)
     w0_sq = w0 * w0
+    track = counts is not None
 
     def solve_v(mu):
-        """Inner 1-D bisection on phi(v) = v - v0 - mu*(slog(v) - n)."""
+        """Inner 1-D bisection on phi(v) = v - v0 - mu*(slog(v) - n);
+        with the row's slog evaluations and bisection passes."""
         four_mu = 4.0 * mu[:, None]
 
         def slog_of(vv):
@@ -906,49 +976,71 @@ def _proj_logdet_vec_batch_ref(t0, v0, w0, n_outer=80):
 
         lo = torch.full_like(v0, 1e-30)
         hi = torch.clamp_min(torch.abs(v0), 1.0)
+        evals = bis = torch.zeros_like(v0, dtype=torch.int64) if track else None
+        live = torch.ones_like(v0, dtype=torch.bool)
         for _ in range(40):
             slog, _ = slog_of(hi)
             phi = hi - v0 - mu * (slog - fn)
             need = phi < 0  # root above hi
+            if track:
+                evals = evals + live
+                live = live & need
             if not bool(need.any()):
                 break
             lo = torch.where(need, hi, lo)
             hi = torch.where(need, hi * 4.0, hi)
-        for _ in range(60):
+        live = torch.ones_like(live)
+        for _ in range(LOGDET_V_BISECTIONS):
             mid = 0.5 * (lo + hi)
             slog, _ = slog_of(mid)
             phi = mid - v0 - mu * (slog - fn)
             lo_new, hi_new = _bisect_step(lo, mid, hi, phi < 0)
+            if track:
+                live = _still_moving(live, lo, hi, lo_new, hi_new)
+                bis = bis + live
             if _frozen(lo, hi, lo_new, hi_new):
                 break
             lo, hi = lo_new, hi_new
         v = 0.5 * (lo + hi)
         slog, w = slog_of(v)
-        return v, w, slog
+        return v, w, slog, (evals + bis + 1, bis) if track else None
+
+    tally = _PlainCounts(t0) if track else None
 
     def h_of(mu):
-        v, w, slog = solve_v(mu)
-        return v * slog - t0 + mu, v, w
+        v, w, slog, passes = solve_v(mu)
+        return v * slog - t0 + mu, v, w, passes
 
     # outer bisection on mu: h increasing, root where constraint active
     lo = torch.zeros_like(t0)
     hi = torch.ones_like(t0)
+    live = torch.ones_like(t0, dtype=torch.bool)
     for _ in range(40):
-        h, _, _ = h_of(hi)
+        h, _, _, passes = h_of(hi)
         need = h < 0
+        if track:
+            tally.tally(live, *passes)
+            live = live & need
         if not bool(need.any()):
             break
         lo = torch.where(need, hi, lo)
         hi = torch.where(need, hi * 4.0, hi)
+    live = torch.ones_like(live)
     for _ in range(n_outer):
         mid = 0.5 * (lo + hi)
-        h, _, _ = h_of(mid)
+        h, _, _, passes = h_of(mid)
         lo_new, hi_new = _bisect_step(lo, mid, hi, h < 0)
+        if track:
+            live = _still_moving(live, lo, hi, lo_new, hi_new)
+            tally.outer_bisect += live
+            tally.tally(live, *passes)
         if _frozen(lo, hi, lo_new, hi_new):
             break
         lo, hi = lo_new, hi_new
     mu = 0.5 * (lo + hi)
-    _, vC, wC = h_of(mu)
+    _, vC, wC, passes = h_of(mu)
+    if track:
+        tally.tally(torch.ones_like(live), *passes)
     tC = t0 - mu
 
     # candidate D: v = 0 facet
@@ -974,6 +1066,8 @@ def _proj_logdet_vec_batch_ref(t0, v0, w0, n_outer=80):
         w_pos & (t0 <= v0 * slog0),
         (v0 == 0) & w_pos & (t0 <= 0),
     )
+    if track:
+        tally.report(counts, inside)
     t = torch.where(inside, t0, t)
     v = torch.where(inside, v0, v)
     w = _where_rows(inside, w0, w)
@@ -983,9 +1077,12 @@ def _proj_logdet_vec_batch_ref(t0, v0, w0, n_outer=80):
 def _proj_logdet_vec_batch(t0, v0, w0, inner_out=None, outer_out=None):
     """Rows (t0 (k,), v0 (k,), w0 (k, n)) onto the logdet cone's vector form
     cl{(t, v, w): v > 0, w > 0, t <= v sum(log(w / v))}; returns (t, v, w).
-    On CUDA: the proj_logdet_vec kernel (csrc/spectral_proj.cu), one warp a
-    cone. `inner_out` and `outer_out`, int32 (k,) tensors, receive per row
-    the evaluations of slog(v) and of h(mu) it ran."""
+    On CUDA: the proj_logdet_vec kernel (csrc/spectral_proj.cu), a cluster
+    of two blocks a cone, its bisections multisected across warps and lane
+    groups. `inner_out` and `outer_out`, int32 (k,) tensors, receive per row
+    the kernel's serial passes: those of the roots in v along the cone's chain
+    (each a sum over the row), and the passes of the root in mu with its
+    final evaluation."""
     _check_spectral("_proj_logdet_vec_batch", w0, t0, v0)
     dev = w0.device
     if dev.type == "cpu":

@@ -38,6 +38,9 @@ class ShardedBellCore(Core):
         (ShardedSCS rejects phase_timing="always" there)."""
         return {"lin_sys": 0.0, "cone": 0.0, "accel_trial": 0.0}
 
+    def phase_sample(self, state, mats, weight):
+        """Not measured (phase_times): no round is timed."""
+
     def _Ax(self, mats: Mats, x):
         bell = mats.bell
         # m is a multiple of n_dev*bs (ShardedSCS pads), so the gathered

@@ -125,8 +125,9 @@ class Settings:
     # JAX-package key (TPU host polling cadence); accepted, no effect.
     host_poll_chunks: int = 8
     # Per-phase timing (info dict lin_sys_time/cone_time/accel_time).
-    # "auto": estimate (timed phase calls x phase counts) when the solve
-    #   is verbose or longer than 0.3 s; "off": never measure; "always":
+    # "auto": estimate (phase calls timed along the solve x phase counts)
+    #   when the solve is verbose or longer than 0.3 s; "off": never
+    #   measure; "always":
     #   measured (SCS runs the per-iteration instrumented loop with
     #   check_interval 1; BatchedSCS scales BatchedSCS.phase_times()).
     phase_timing: str = "auto"

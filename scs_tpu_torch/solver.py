@@ -228,6 +228,7 @@ class Core:
         self.lookback = int(stg.acceleration_lookback)
         self.interval = int(stg.acceleration_interval)
         self._phase_cache = None
+        self._phase_samples = []
 
     def _init_strategy(self, spec: ConeSpec, stg: Settings):
         """Strategy flags and the refinement policy (scs_tpu
@@ -1141,47 +1142,74 @@ class Core:
             aa=state.aa._replace(count=2),
         )
 
+    def _phase_round(self, st: State, mats: Mats):
+        """One round of the instrumented loop's sequence from `st`: the
+        linear step, the cone step and the iteration tail, each timed to a
+        device synchronize, then a check and the probe's read. The tail runs
+        from `st` altered to fire the AA trial (its time is accel_trial) and
+        to leave the scale alone in the check. Returns the three times in
+        seconds; nothing of the solve changes."""
+        pc = time.perf_counter
+        trial = self._doctored_trial_state(st)._replace(since_rescale=-(1 << 62))
+        times = np.zeros(3)
+        ts = pc()
+        lin = self._step_lin(st, mats)
+        self._sync()
+        times[0] = pc() - ts
+        ts = pc()
+        st1 = self._step_cone(st, *lin, mats)
+        self._sync()
+        times[1] = pc() - ts
+        ts = pc()
+        tail = self._iter_tail(trial, st1, mats)
+        self._sync()
+        times[2] = pc() - ts
+        self._probe(self._check(tail, mats))
+        return times
+
+    def phase_sample(self, state: State, mats: Mats, weight):
+        """One round (_phase_round) timed from a state of the running
+        solve, standing for `weight` of its chunks: the pipelined loop's
+        "auto" timers (api.SCS._pipelined_loop clears `_phase_samples` at
+        its start)."""
+        self._phase_samples.append((weight, self._phase_round(state, mats)))
+
     def phase_times(self, states, mats: Mats):
         """Measured per-call cost of each solver phase, in seconds:
-        dict(lin_sys=, cone=, accel_trial=), averaged over `states`
-        (callers pass [initial, final] so the state-dependent CG cost is
-        sampled at both ends of the tolerance schedule). The phases are
-        timed in the instrumented loop's sequence (phase_timing="always"):
-        from each state, one round to warm up, then 5 rounds of the
-        linear step, the cone step and the iteration tail, each timed to a
-        device synchronize, then a check and the probe's read. The tail
-        runs from the state altered to fire the AA trial (its time is
-        accel_trial) and to leave the scale alone in the check. A phase timed
-        alone, back to back, reads less host time than it takes in the loop,
-        where it follows the other phases and a check (tools/timer_proto.py
-        prints both estimates on the same states)."""
-        if self._phase_cache is not None:
+        dict(lin_sys=, cone=, accel_trial=), in the instrumented loop's
+        sequence (phase_timing="always"; _phase_round). After a pipelined
+        solve that sampled rounds along its way (phase_sample), their mean
+        weighted by the chunks each stands for: the host's speed drifts by
+        tens of percent over seconds, and the instrumented loop's sums
+        average it over the whole solve. Otherwise a snapshot, cached: from
+        each of `states` (callers pass [initial, final] so the
+        state-dependent CG cost is sampled at both ends of the tolerance
+        schedule) one round to warm up, then 5 timed rounds. A phase timed
+        alone, back to back, reads less host time than it takes in the
+        loop, where it follows the other phases and a check
+        (tools/timer_proto.py prints both estimates on the same states)."""
+        if self._phase_samples:
+            w = np.array([s[0] for s in self._phase_samples], np.float64)
+            t = np.stack([s[1] for s in self._phase_samples])
+            lin_sys, cone, accel = (float(v) for v in w @ t / w.sum())
+        elif self._phase_cache is not None:
             return self._phase_cache
-        if isinstance(states, State):
-            states = [states]
-        pc = time.perf_counter
-        rounds = 5
-
-        def timed(phase, *args):
-            ts = pc()
-            out = phase(*args)
-            self._sync()
-            return out, pc() - ts
-
-        total = np.zeros(3)
-        for st in states:
-            trial = self._doctored_trial_state(st)._replace(since_rescale=-(1 << 62))
-            for r in range(rounds + 1):
-                lin, t_lin = timed(self._step_lin, st, mats)
-                st1, t_cone = timed(self._step_cone, st, *lin, mats)
-                tail, t_tail = timed(self._iter_tail, trial, st1, mats)
-                self._probe(self._check(tail, mats))
-                if r:
-                    total += (t_lin, t_cone, t_tail)
-        lin_sys, cone, accel = (float(t) for t in total / (len(states) * rounds))
-        self._phase_cache = {
+        else:
+            if isinstance(states, State):
+                states = [states]
+            rounds = 5
+            total = np.zeros(3)
+            for st in states:
+                for r in range(rounds + 1):
+                    times = self._phase_round(st, mats)
+                    if r:
+                        total += times
+            lin_sys, cone, accel = (float(t) for t in total / (len(states) * rounds))
+        out = {
             "lin_sys": lin_sys,
             "cone": cone,
             "accel_trial": accel if self.lookback > 0 else 0.0,
         }
-        return self._phase_cache
+        if not self._phase_samples:
+            self._phase_cache = out
+        return out

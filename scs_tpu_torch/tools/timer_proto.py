@@ -7,11 +7,14 @@ card at eps 1e-5, which is the high-accuracy mode), N times (default 8):
 an instrumented solve (phase_timing="always") and an "auto" solve, and the
 auto/instrumented ratio of lin_sys + cone an iteration that the reference
 test bounds (`ratio()`, which chip_smoke.py's phase 13 and the port's card
-test use). Beside each ratio, from the auto solve's two states ([state0,
-final]) just after it: `Core.phase_times` (the loop's sequence) and the
-earlier estimate (`phase_times_alone`: each phase timed alone, back to
-back), each over the instrumented loop's measurement, and per phase the
-earlier estimate over the sequence's. The card's name and power limit
+test use). The auto estimate is the mean of the rounds the auto solve
+timed along its way (`Core.phase_sample`; their count is printed). Beside
+each ratio, from the auto solve's two states ([state0, final]) just after
+it: the end snapshot (`Core.phase_times` without samples: the loop's
+sequence, 5 rounds a state, the estimate before the rounds were spread
+over the solve) and the earlier estimate (`phase_times_alone`: each phase
+timed alone, back to back), each over the instrumented loop's measurement,
+and per phase the earlier estimate over the snapshot's. The card's name and power limit
 come first and on every line. Needs a CUDA card; nothing runs on import.
 """
 
@@ -112,10 +115,12 @@ def main(argv=None):
         inst, auto, solver = solves(data, m, **dict(QP_KW, device="cuda"))
         r_i = sum(per_iteration(inst))
         core, states = solver.core, [solver._state0, solver._last_state]
-        core._phase_cache = None
+        rounds = len(core._phase_samples)
+        core._phase_samples, core._phase_cache = [], None
         seq = core.phase_times(states, solver.mats)
         alone = phase_times_alone(core, states, solver.mats)
         r = {"ratio": sum(per_iteration(auto)) / r_i, "iter": (inst["iter"], auto["iter"]),
+             "rounds": rounds,
              "instrumented_ms": per_iteration(inst), "auto_ms": per_iteration(auto),
              "sequence": 1e3 * (seq["lin_sys"] + seq["cone"]) / r_i,
              "alone": 1e3 * (alone["lin_sys"] + alone["cone"]) / r_i,
@@ -124,15 +129,18 @@ def main(argv=None):
         print(f"[timers] auto/instrumented {r['ratio']:.3f} (instrumented {inst['iter']} "
               f"iterations, lin_sys {r['instrumented_ms'][0]:.4f} + cone "
               f"{r['instrumented_ms'][1]:.4f} ms an iteration; auto {auto['iter']}, "
-              f"{r['auto_ms'][0]:.4f} + {r['auto_ms'][1]:.4f}); from the auto solve's states just "
-              f"after it, over the instrumented: phase_times {r['sequence']:.3f}, each phase alone "
-              f"{r['alone']:.3f}; alone over phase_times: lin_sys "
+              f"{r['auto_ms'][0]:.4f} + {r['auto_ms'][1]:.4f} from {rounds} rounds along the "
+              f"solve); from the auto solve's states just after it, over the instrumented: end "
+              f"snapshot {r['sequence']:.3f}, each phase alone "
+              f"{r['alone']:.3f}; alone over the snapshot: lin_sys "
               f"{r['alone_over_sequence']['lin_sys']:.3f}, cone "
               f"{r['alone_over_sequence']['cone']:.3f} [{tag}]", flush=True)
-    ratios = np.array([r["ratio"] for r in runs])
-    print(f"[timers] {len(ratios)} ratios {ratios.min():.3f}-{ratios.max():.3f}: "
-          f"{int(((ratios <= 0.8) | (ratios >= 1.25)).sum())} outside 0.8-1.25, "
-          f"{int(((ratios <= 0.7) | (ratios >= 1.43)).sum())} outside 0.7-1.43 [{tag}]")
+    for label, key in (("auto/instrumented", "ratio"), ("end snapshot/instrumented", "sequence")):
+        ratios = np.array([r[key] for r in runs])
+        print(f"[timers] {len(ratios)} {label} ratios {ratios.min():.3f}-{ratios.max():.3f}, "
+              f"sd {ratios.std():.3f}: {int(((ratios <= 0.8) | (ratios >= 1.25)).sum())} outside "
+              f"0.8-1.25, {int(((ratios <= 0.7) | (ratios >= 1.43)).sum())} outside 0.7-1.43 "
+              f"[{tag}]")
     if "--json" in opts:
         with open(opts["--json"], "w") as fh:
             json.dump({"card": tag, "runs": runs}, fh, indent=1)

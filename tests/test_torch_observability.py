@@ -196,6 +196,35 @@ def test_phase_timers_off():
         assert info["accel_time"] == 0.0
 
 
+@pytest.mark.parametrize("strategy", list(STRATEGIES))
+def test_auto_timers_sampled_along_the_solve_leave_it_unchanged(capsys, strategy):
+    """The "auto" timers time rounds of the instrumented sequence during
+    the pipelined solve (verbose switches them on from the first chunk):
+    300 iterations are 12 chunks, rounds after chunks 1-4 weighted 1 and
+    6-12 weighted 2; the iterates are those of phase_timing="off", bit for
+    bit, and the timers the rounds' weighted mean times the counts."""
+    data, cone = _lp118()
+    kw = dict(eps_abs=1e-7, eps_rel=1e-7, max_iters=300, verbose=True,
+              **STRATEGIES[strategy], **CPU)
+    off = scs_tpu_torch.SCS(data, cone, phase_timing="off", **kw).solve()
+    solver = scs_tpu_torch.SCS(data, cone, phase_timing="auto", **kw)
+    auto = solver.solve()
+    capsys.readouterr()
+    assert auto["info"]["iter"] == off["info"]["iter"] == 300
+    for key in ("x", "y", "s"):
+        assert np.array_equal(auto[key], off[key]), key
+    samples = solver.core._phase_samples
+    assert [w for w, _ in samples] == [1, 1, 1, 1, 2, 2, 2, 2]
+    w = np.array([w for w, _ in samples], np.float64)
+    mean = w @ np.stack([t for _, t in samples]) / w.sum()
+    info = auto["info"]
+    assert info["lin_sys_time"] == pytest.approx(mean[0] * 300, rel=1e-12)
+    assert info["cone_time"] == pytest.approx(mean[1] * 300, rel=1e-12)
+    assert info["accel_time"] == pytest.approx(
+        mean[2] * info["aa_stats"]["iter"], rel=1e-12)
+    assert min(mean) > 0
+
+
 @pytest.mark.parametrize("phase_timing", ["auto", "always"])
 def test_verbose_footer_shows_breakdown(capsys, phase_timing):
     data, cone = _qp(seed=3)

@@ -143,6 +143,140 @@ def test_plain_versions_leave_a_bisection_only_when_it_is_frozen():
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
+# ---------------------------------------------------------------------------
+# The plain map's counts, C5's one ranking, the kernels' bound
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n", (1, 6, 32))
+@pytest.mark.parametrize("kind", ["logdet", "sl"])
+def test_plain_counts_cut_the_bisections_to_the_same_bits(kind, n, dtype, monkeypatch):
+    """The plain versions' per-row counts (the passes before each bracket
+    froze): a row's bisections cut at its counts give its fixed-count
+    answer bit for bit, asking for the counts changes no bit, and the
+    answer stays scs_tpu's."""
+    jin, tin = None, None
+    if kind == "logdet":
+        rows = mc.logdet_rows(7, n, seed=n + 1)
+        ref, extra, cut = tpr._proj_logdet_vec_batch_ref, (), "n_outer"
+        jin, tin = _both(rows, dtype)
+        jax_out = _jit_logdet(*jin)
+    else:
+        kk = max(1, n // 3)
+        rows = mc.sl_rows(10, n, kk, seed=n + 2)
+        ref, extra, cut = tpr._proj_sl_vec_batch_ref, (kk,), "n_bisect"
+        jin, tin = _both(rows, dtype)
+        jax_out = _jit_sl(*jin, kk)
+    counts = {}
+    out = ref(*tin, *extra, counts=counts)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref(*tin, *extra)))
+    _close(out, jax_out, rows, dtype)
+    assert sorted(counts) == ["inner", "inner_bisect", "outer", "outer_bisect"]
+    inside = counts["outer"] == 0  # rows already inside need no pass
+    assert 0 < int(inside.sum()) < len(rows[0])
+    moved = ~inside
+    assert bool((counts["inner"][moved] >= counts["outer"][moved]).all())
+    assert bool((counts["outer_bisect"][moved] < counts["outer"][moved]).all())  # + the final h
+    assert bool((counts["inner_bisect"][moved] < counts["inner"][moved]).all())
+    simplex = tpr._proj_capped_simplex
+    for i in range(len(rows[0])):
+        row = [x[i : i + 1] for x in tin]
+        fixed = ref(*row, *extra)
+        inner = int(counts["inner_bisect"][i])
+        with monkeypatch.context() as m:  # the inner bisections cut at the row's count
+            if kind == "logdet":
+                m.setattr(tpr, "LOGDET_V_BISECTIONS", inner)
+            else:
+                m.setattr(tpr, "_proj_capped_simplex",
+                          lambda w, k_val, n_bisect=60, passes=None: simplex(w, k_val, inner, passes))
+            short = ref(*row, *extra, **{cut: int(counts["outer_bisect"][i])})
+        assert all(torch.equal(a, b) for a, b in zip(fixed, short)), i
+        assert all(torch.equal(a[0], b[i]) for a, b in zip(fixed, out)), i
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_sum_of_largest_ranks_once(dtype):
+    """C5's premise: w_at(x) = x - mu clamp(x / d - tau, 0, 1), d = max(mu,
+    tiny), is nondecreasing in x, so the sum of the kk largest of the plain
+    map's w_at(w0) is w_at summed over the kk largest entries of w0 (ties
+    to the lower index), to n ulps of the row's magnitude; on rows with
+    ties, negative rows, magnitudes 1e-3..1e3, at mu from 0 and below the
+    type's smallest normal number up to 1e3 |w0|. Rows where w0 / d
+    overflows (mu < tiny) have no finite w_at in the plain map either."""
+    tdt = DTYPES[dtype][1]
+    tiny, eps = torch.finfo(tdt).tiny, torch.finfo(tdt).eps
+    for n, kk in ((1, 1), (6, 2), (17, 16), (32, 4)):
+        t0, w0 = (torch.as_tensor(x, dtype=tdt) for x in mc.sl_rows(25, n, kk, seed=n))
+        top = torch.sort(-w0, dim=1, stable=True).indices[:, :kk]
+        mag = w0.abs().amax(1)
+        for mu_s in (0.0, tiny / 4, tiny, 1e-30, 1e-6, 1e-3, 1.0, 1e3):
+            mu = mu_s * mag if mu_s > 1e-20 else torch.full_like(mag, mu_s)
+            d = torch.clamp_min(mu, tiny)
+            w = w0 - mu[:, None] * tpr._proj_capped_simplex(w0 / d[:, None], kk)
+            largest = torch.sort(w, dim=1, descending=True).values[:, :kk].sum(1)
+            ranked = torch.gather(w, 1, top).sum(1)
+            fin = torch.isfinite(w).all(1)
+            assert bool(fin.all()) or mu_s <= tiny  # only w0 / tiny overflows
+            scale = torch.maximum(mag, mu)[fin]
+            assert bool(((largest - ranked)[fin].abs() <= n * eps * scale).all()), (n, mu_s)
+
+
+@pytest.mark.parametrize("kind", ["d", "sl"])
+def test_spectral_bound_is_the_roofline_of_the_plain_maps_work(kind):
+    """check_spectral_kernels' bound (mixed_cone.spectral_bound_ms): the
+    larger of the bytes (each row read and written once) over the memory
+    rate and the plain algorithm's operations on the passes the rows need
+    on the plain map over the peak rate; it takes the plain version's
+    counts and nothing of the kernel's (whose counts set chain_ms, the
+    kernel's serial floor, beside it)."""
+    import inspect  # noqa: PLC0415
+    import math  # noqa: PLC0415
+
+    hbm, peak = 3.35e12, {torch.float32: 67e12, torch.float64: 34e12}
+    assert list(inspect.signature(mc.spectral_bound_ms).parameters) == [
+        "kind", "n", "dtype", "counts", "hbm_bytes_per_s", "peak_flops"]
+    n, kk = 6, (None if kind == "d" else 2)
+    rows = mc.logdet_rows(7, n, seed=4) if kind == "d" else mc.sl_rows(10, n, kk, seed=4)
+    for dtype, np_dtype, item in ((torch.float32, np.float32, 4), (torch.float64, np.float64, 8)):
+        _, counts = mc._spectral_plain((kind, [np.asarray(x, np_dtype) for x in rows], kk))
+        inner, outer = int(counts["inner"].sum()), int(counts["outer"].sum())
+        k = len(rows[0])
+        if kind == "d":
+            ops = inner * (n * 9 + 12) + outer * 8
+            n_bytes = 2 * k * (n + 2) * item
+        else:
+            ops = inner * (n * 4 + 5) + outer * n * (9 + math.ceil(math.log2(n)))
+            n_bytes = 2 * k * (n + 1) * item
+        by_bytes, by_ops = n_bytes / hbm, ops / peak[dtype]
+        assert inner > 0 and by_ops > by_bytes  # these rows are bound by their passes
+        assert mc.spectral_bound_ms(kind, n, dtype, counts, hbm, peak) == (
+            max(by_bytes, by_ops) * 1e3, "operations")
+        # rows that need no pass (all inside) are bound by their bytes
+        none = {key: np.zeros_like(c) for key, c in counts.items()}
+        assert mc.spectral_bound_ms(kind, n, dtype, none, hbm, peak) == (by_bytes * 1e3, "bytes")
+    # the kernel's serial floor reads the kernel's counts: its longest chain
+    chain_ops = mc.LD_CHAIN_OPS if kind == "d" else mc.SL_CHAIN_OPS
+    assert mc.chain_ms(kind, np.array([3, 900, 10]), 2e9) == 900 * chain_ops * 4 / 2e9 * 1e3
+
+
+def test_f64_witness_holds_the_kernel_to_the_plain_f64_answer():
+    """check_spectral_kernels' witness for an f32 row over KERNEL_TOL: row
+    13 of logdet_rows(67, 64, seed=131) has the plain f32 answer 1.2e-3 of
+    |row| off the plain f64 one; an answer at the f64 one passes there and
+    only there; one moved 4e-3 of |row| off the plain f32 answer (so at
+    least 2.8e-3 off the f64 one, past 1.2e-3 + KERNEL_TOL) fails."""
+    tol = mc.KERNEL_TOL[torch.float32]
+    rows = [np.asarray(x, np.float32)[[13, 18, 25]] for x in mc.logdet_rows(67, 64, seed=131)]
+    out_p, _ = mc._spectral_plain(("d", rows, None))
+    out64, _ = mc._spectral_plain(("d", [x.astype(np.float64) for x in rows], None))
+    at64 = [x.astype(np.float32) for x in out64]
+    assert mc.f64_witness("d", None, rows, at64, out_p, tol).tolist() == [True, False, False]
+    far = [x.copy() for x in out_p]
+    far[0][0] += 4e-3 * np.abs(np.concatenate([rows[0][:1], rows[1][:1], rows[2][0]])).max()
+    assert not mc.f64_witness("d", None, rows, far, out_p, tol).any()
+
+
 def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
     before = tpr._proj_logdet_vec_batch.launches, tpr._proj_sl_vec_batch.launches
     t0, v0, w0 = (torch.as_tensor(x) for x in mc.logdet_rows(7, 3, seed=1))

@@ -1,7 +1,9 @@
 """C4 and C5, the spectral-cone kernels of csrc/spectral_proj.cu, on the
 card: against their plain versions (scs_tpu_torch.tools.mixed_cone's
-checks), the wrappers' refusals of bad input, and the projector sending
-the sum-of-largest and logdet buckets through them. Every test is
+checks), at the edges of the kernels' layouts too, the multisection's
+serial passes against the plain map's, the wrappers' refusals of bad
+input, and the projector sending the sum-of-largest and logdet buckets
+through them. Every test is
 `cuda`-marked and skips without a card; this file imports no JAX.
 
     python -m pytest tests/test_torch_spectral_card.py -q -m cuda
@@ -43,6 +45,45 @@ def test_spectral_kernels_match_plain_on_card(cuda_device, kernel, dtype):
                               geometry_rows=7, log=lines.append, dtypes=(dtype,), **cases)
     assert len(lines) == 4 and all(str(dtype)[6:] in ln for ln in lines)  # a fault raises
     assert tpr._proj_logdet_vec_batch.launches + tpr._proj_sl_vec_batch.launches > before
+
+
+# n at each capacity of the kernels' layouts and one past it (a group of 8
+# lanes holds 8, 16, 32 or 64 eigenvalues, of 16 lanes 128, of 32 lanes
+# 256, then the memory path), at row counts the launch does not tile
+EDGE_LOGDET = ((5, 8), (5, 9), (3, 32), (3, 33), (3, 64), (3, 65), (3, 128), (3, 129),
+               (2, 256), (2, 257))
+EDGE_SL = ((5, 16, 3, False), (5, 17, 16, True), (3, 64, 1, False), (3, 65, 64, True),
+           (3, 128, 7, False), (3, 129, 2, True), (2, 256, 255, False), (2, 257, 1, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spectral_kernels_match_plain_at_the_layouts_edges(cuda_device, dtype):
+    lines = []
+    mc.check_spectral_kernels(3.35e12, {torch.float32: 67e12, torch.float64: 34e12}, 1.98e9,
+                              logdet_cases=EDGE_LOGDET, sl_cases=EDGE_SL,
+                              report_at={"proj_logdet_vec": (), "proj_sl_vec": ()},
+                              geometry_rows=2, log=lines.append, dtypes=(dtype,))
+    assert len(lines) == len(EDGE_LOGDET) + len(EDGE_SL)  # a fault raises
+
+
+@pytest.mark.cuda
+def test_logdet_kernel_multisects_both_roots(cuda_device):
+    """On logdet_rows(64, 32) in f32 the kernel's serial passes, outer and
+    inner, are at most a third of the plain map's: the bisections run as
+    multisection in the kernel."""
+    rows = mc.logdet_rows(64, 32, seed=96)
+    counts = {}
+    tpr._proj_logdet_vec_batch_ref(*(torch.as_tensor(x, dtype=torch.float32) for x in rows),
+                                   counts=counts)
+    inner, outer = (torch.zeros(64, dtype=torch.int32, device=cuda_device) for _ in range(2))
+    tpr._proj_logdet_vec_batch(
+        *(torch.as_tensor(x, dtype=torch.float32, device=cuda_device) for x in rows),
+        inner_out=inner, outer_out=outer)
+    assert 0 < int(inner.sum()) <= int(counts["inner"].sum()) / 3
+    assert 0 < int(outer.sum()) <= int(counts["outer"].sum()) / 3
+    # the rows inside run no pass, in either
+    assert torch.equal((inner.cpu() == 0), counts["inner"] == 0)
 
 
 @pytest.mark.cuda
