@@ -157,7 +157,19 @@ Phases, one line each; any failure raises and exits nonzero:
      launch a call of each spectral wrapper), a torch.profiler window over
      two chunks each, and phase 3's checks of C4 and C5 on the rows the two
      solves handed them early, in the middle and late (in the solve's
-     type).
+     type);
+ 16. the status surface, f32 on the card (the default path): an
+     infeasible and an unbounded LP of STATUS_M x STATUS_N under "direct",
+     "indirect" and "bell" (G1/G2, and K1/K2 under "bell", launched),
+     each "infeasible" / "unbounded" with its certificate held in f64 on
+     the host (infeasible: ||A'y|| small, b'y < 0 as the solver normalizes
+     it to -1, y in K*; unbounded: ||Ax + s|| small, c'x < 0, s in K); a QP
+     over z + l + SOCs solved, then update(b, c) and a warm re-solve:
+     solved in fewer iterations than a cold solve of the updated data, with
+     no factorization; a solve stopped by time_limit_secs, which returns
+     "solved_inaccurate" with finite iterates; a BatchedSCS of 8 LPs, one
+     of them infeasible, each status at its original position. One line:
+     statuses, iterations and wall time, at most STATUS_WALL_S.
 
 Then the whole run's wall time, one JSON line describing the kernels (each
 with its launches on the main path and in phase 12's bench run), and last
@@ -260,6 +272,19 @@ DOPT_DTYPE, SPECTRAL_DTYPE = "float64", "float32"
 # the script's time limit
 DOPT_CONE_EVERY, SPECTRAL_CONE_EVERY = 16, 4
 SPECTRAL_WORKERS = 8
+# Phase 16: the status surface. The LPs' size (sparse, density
+# STATUS_DENSITY, so that "bell" packs them); the QP's cone; the time limit
+# and the eps it stops short of; the phase's wall budget on the card.
+STATUS_M, STATUS_N, STATUS_DENSITY, STATUS_SEED = 1200, 800, 0.05, 1600
+STATUS_QP_K = {"z": 40, "l": 600, "q": [10] * 20}
+# the QP's solves check every STATUS_QP_CHECK iterations: at the default
+# 25 a warm and a cold solve of ~50 iterations often end at the same check
+STATUS_QP_N, STATUS_QP_CHECK, STATUS_LIMIT_S, STATUS_WALL_S = 500, 5, 0.5, 40.0
+# The LPs' eps_infeas: in f32 the unbounded LP's certificate residual
+# stalls at ~3e-6, in scs_tpu too (on the CPU), short of the default 1e-7.
+# The certificate gates in f64 on the host, the certificate normalized as
+# the solver returns it (b'y = -1, c'x = -1)
+STATUS_EPS_INFEAS, STATUS_CERT_TOL = 1e-5, 1e-4
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the non-tensor-core rates of the kernels' element types
 HBM_BYTES_PER_S = 3.35e12
@@ -2081,6 +2106,151 @@ def phase_sharded_dryrun():
     return res
 
 
+def gen_status_lps(m, n, density, seed):
+    """A solvable, an infeasible and an unbounded LP over the nonnegative
+    cone, m x n, sparse, in numpy. Solvable: b = A x0 + s0 with s0 >= 0,
+    c = -A'y0 with y0 >= 0 and y0 = 0 on the last two rows. Infeasible: its
+    last two rows replaced by x_0 <= -1 and -x_0 <= -1 (y = e_m-2 + e_m-1
+    certifies it: A'y = 0, b'y = -2); y0 still keeps its dual feasible, so
+    that no certificate of unboundedness exists too. Unbounded: its last
+    column made <= 0, b refitted to stay feasible, c random with c_n-1 =
+    -1, so that x_n-1 -> inf stays feasible and c'x -> -inf."""
+    rng = np.random.RandomState(seed)
+    A = sparse.random(m, n, density, random_state=rng, data_rvs=rng.standard_normal).tocsc()
+    x0, s0 = rng.standard_normal(n), np.abs(rng.standard_normal(m))
+    c = -(A[: m - 2].T @ np.abs(rng.standard_normal(m - 2)))
+    solvable = {"A": A, "b": A @ x0 + s0, "c": c}
+    pair = sparse.csr_matrix(([1.0, -1.0], ([0, 1], [0, 0])), shape=(2, n))
+    infeasible = {"A": sparse.vstack([A[: m - 2], pair]).tocsc(),
+                  "b": np.r_[solvable["b"][: m - 2], -1.0, -1.0], "c": c}
+    Au = A.tolil()
+    Au[:, n - 1] = -np.abs(rng.standard_normal((m, 1))) / np.sqrt(m)
+    Au = Au.tocsc()
+    unbounded = {"A": Au, "b": Au @ x0 + s0, "c": np.r_[rng.standard_normal(n - 1), -1.0]}
+    return solvable, infeasible, unbounded
+
+
+def gen_status_qp(K, n, seed):
+    """A QP over K (z + l + SOCs) with a planted feasible point: b = A x0 + s0
+    with s0 in K, P positive definite (upper triangle; its 0.1 I makes the
+    default scale fit it, so that its solves in f32 need no rescale), dense
+    A. Returns the data and the generator, for the update's draws."""
+    rng = np.random.RandomState(seed)
+    m = K["z"] + K["l"] + sum(K["q"])
+    A = rng.standard_normal((m, n)) / np.sqrt(m)
+    s0 = [np.zeros(K["z"]), np.abs(rng.standard_normal(K["l"]))]
+    for q in K["q"]:
+        v = rng.standard_normal(q - 1)
+        s0.append(np.r_[np.linalg.norm(v) + abs(rng.standard_normal()), v])
+    G = rng.standard_normal((n, n // 10))
+    P = (0.1 / (n // 10)) * (G @ G.T) + 0.1 * np.eye(n)
+    data = {"A": sparse.csc_matrix(A), "P": sparse.csc_matrix(np.triu(P)),
+            "b": A @ rng.standard_normal(n) + np.concatenate(s0), "c": rng.standard_normal(n)}
+    return data, rng
+
+
+def _certificate(label, data, sol):
+    """The certificate of an infeasible / unbounded LP over the nonnegative
+    cone, in f64 on the host against the raw data; returns its residual."""
+    A, b, c = data["A"], data["b"], data["c"]
+    status = sol["info"]["status"]
+    if status == "infeasible":
+        y = np.asarray(sol["y"], np.float64)
+        res, obj, cone, scale = np.linalg.norm(A.T @ y), b @ y, y.min(), np.linalg.norm(y)
+    elif status == "unbounded":
+        x, s = (np.asarray(sol[k], np.float64) for k in ("x", "s"))
+        res, obj, cone, scale = np.linalg.norm(A @ x + s), c @ x, s.min(), np.linalg.norm(s)
+    else:
+        raise AssertionError(f"[16] {label}: status {status!r} after {sol['info']['iter']} it")
+    lim = STATUS_CERT_TOL * max(scale, 1.0)
+    if not (res <= STATUS_CERT_TOL and obj < 0 and cone >= -lim):
+        raise AssertionError(f"[16] {label}: certificate residual {res:.3e}, objective {obj:.3e}, "
+                             f"cone {cone:.3e} (limits {STATUS_CERT_TOL:g}, < 0, >= {-lim:.3e})")
+    return res
+
+
+def phase_status():
+    """Phase 16: the status surface on the card, f32 (the default dtype on
+    CUDA): certificates under each strategy, update and warm start, the
+    time limit, a mixed batch (module docstring). Each gate raises; one
+    line is printed."""
+    t0 = time.perf_counter()
+    words = []
+    _, infeasible, unbounded = gen_status_lps(STATUS_M, STATUS_N, STATUS_DENSITY, STATUS_SEED)
+    for strategy in ("direct", "indirect", "bell"):
+        for label, data in (("infeasible", infeasible), ("unbounded", unbounded)):
+            _zero_counts(gemv_rows, gemv_cols, bell_spmv)
+            sol = scs_tpu_torch.solve(data, {"l": STATUS_M}, solver_strategy=strategy,
+                                      eps_infeas=STATUS_EPS_INFEAS, verbose=False)
+            if sol["info"]["status"] != label:
+                raise AssertionError(f"[16] {label} LP under {strategy!r}: status "
+                                     f"{sol['info']['status']!r}")
+            res = _certificate(f"{label} LP under {strategy!r}", data, sol)
+            need = (bell_spmv,) if strategy == "bell" else (gemv_rows, gemv_cols)
+            if min(f.launches for f in need) <= 0:
+                raise AssertionError(f"[16] {label} LP under {strategy!r} launched no "
+                                     f"{[f.__name__ for f in need]}")
+            words.append(f"{label}/{strategy} {sol['info']['iter']} it (cert {res:.1e})")
+
+    data, rng = gen_status_qp(STATUS_QP_K, STATUS_QP_N, STATUS_SEED)
+    kw = dict(verbose=False, check_interval=STATUS_QP_CHECK)
+    solver = scs_tpu_torch.SCS(data, STATUS_QP_K, **kw)
+    if solver.stg.dtype != "float32":
+        raise AssertionError(f"[16] expected an f32 solve, got {solver.stg.dtype}")
+    first = solver.solve()
+    b2 = data["b"] + 0.01 * np.abs(rng.standard_normal(len(data["b"])))
+    c2 = data["c"] + 0.01 * rng.standard_normal(len(data["c"]))
+    fac = solver.core.factorizations
+    solver.update(b=b2, c=c2)
+    warm = solver.solve()
+    cold = scs_tpu_torch.solve(dict(data, b=b2, c=c2), STATUS_QP_K, **kw)
+    its = [r["info"]["iter"] for r in (first, warm, cold)]
+    if [r["info"]["status"] for r in (first, warm, cold)] != ["solved"] * 3:
+        raise AssertionError(f"[16] QP: first / warm / cold {first['info']['status']!r} / "
+                             f"{warm['info']['status']!r} / {cold['info']['status']!r}")
+    if not its[1] < its[2] or solver.core.factorizations != fac:
+        raise AssertionError(f"[16] QP: the warm re-solve took {its[1]} it against a cold "
+                             f"{its[2]}, factorizing {solver.core.factorizations - fac} times")
+    words.append(f"QP solved in {its[0]} it, updated and warm {its[1]} it (cold {its[2]}), "
+                 f"no factorization")
+
+    t1 = time.perf_counter()
+    part = scs_tpu_torch.solve(data, STATUS_QP_K, eps_abs=1e-9, eps_rel=1e-9, max_iters=10**8,
+                               time_limit_secs=STATUS_LIMIT_S, verbose=False)
+    secs = time.perf_counter() - t1
+    m = data["A"].shape[0]
+    shaped = all(part[k].shape == (n,) and np.isfinite(part[k]).all()
+                 for k, n in (("x", STATUS_QP_N), ("y", m), ("s", m)))
+    if part["info"]["status"] != "solved_inaccurate" or not shaped or not (
+            0 < part["info"]["iter"] < 10**8 and secs < STATUS_LIMIT_S + 10):
+        raise AssertionError(f"[16] time limit {STATUS_LIMIT_S} s: {part['info']['status']!r} "
+                             f"after {part['info']['iter']} it in {secs:.2f} s, iterates finite "
+                             f"and shaped {shaped}")
+    words.append(f"time limit {STATUS_LIMIT_S} s: {part['info']['status']} after "
+                 f"{part['info']['iter']} it in {secs:.2f} s")
+
+    B, bad, mb, nb = 8, 3, STATUS_M // 4, STATUS_N // 4
+    batch = [gen_status_lps(mb, nb, 4 * STATUS_DENSITY, STATUS_SEED + i)[1 if i == bad else 0]
+             for i in range(B)]
+    res = scs_tpu_torch.BatchedSCS(
+        {"A": np.stack([p["A"].toarray() for p in batch]),
+         "b": np.stack([p["b"] for p in batch]), "c": np.stack([p["c"] for p in batch])},
+        {"l": mb}, eps_infeas=STATUS_EPS_INFEAS, verbose=False).solve()
+    statuses = [r["info"]["status"] for r in res]
+    want = ["infeasible" if i == bad else "solved" for i in range(B)]
+    if statuses != want:
+        raise AssertionError(f"[16] mixed batch: statuses {statuses}, want {want}")
+    _certificate(f"mixed batch problem {bad}", batch[bad], res[bad])
+    for i in range(B):
+        if i != bad:
+            kkt_check(batch[i], res[i], 1e-4)
+    wall = time.perf_counter() - t0
+    words.append(f"mixed batch of {B}: {statuses} in {[r['info']['iter'] for r in res]} it")
+    print("[16] status surface, f32 on cuda: " + "; ".join(words) + f"; wall {wall:.1f} s")
+    if wall > STATUS_WALL_S:
+        raise AssertionError(f"[16] the phase took {wall:.1f} s, past its {STATUS_WALL_S} s")
+
+
 def phase_sharded(pobj_ref):
     """Phase 14: (a) the bell LP at world 1 (NCCL), (b) at world 2 (gloo, one
     card) and the dense QP at world 2, (c) the dryrun's legs at world 1."""
@@ -2143,6 +2313,7 @@ def main():
     phase_instrumented(name_and_limit)
     sharded_checks, sharded = phase_sharded(pobj4)
     spectral_launches = phase_spectral()
+    phase_status()
 
     f32 = torch.float32
     spmv_src = "scs_tpu_torch/ops/csrc/bell_spmv.cu"

@@ -1,0 +1,15 @@
+"""scs_tpu's tests/test_warm_start_consistency.py, run against the port on the CPU.
+
+Every case of the reference module runs its own test function, with its
+own tolerances, seeds and sizes, through the CPU facade of scs_tpu_torch
+(`tests/torch_ref_facade.py`)."""
+
+import pytest
+
+import test_warm_start_consistency as ref
+from torch_ref_facade import ref_cases, run_ref_case
+
+
+@pytest.mark.parametrize("case", ref_cases(ref))
+def test_ref(case, monkeypatch, request):
+    run_ref_case(ref, case, monkeypatch, request)

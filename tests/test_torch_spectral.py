@@ -411,3 +411,46 @@ def test_kiefer_wolfowitz_gap():
     assert rel <= 1e-12 and abs(gap) <= 1e-12
     rel, _ = mc.dopt_check(V, np.r_[lam, np.linalg.slogdet(np.eye(n) / n)[1] + 0.1])
     assert abs(rel * (1 + abs(np.linalg.slogdet(np.eye(n) / n)[1] + 0.1)) - 0.1) <= 1e-12
+
+
+@pytest.mark.slow
+def test_spectral_solve_end_to_end_matches_scs_tpu():
+    """One whole f64 solve over a logdet cone and a sum-of-largest cone, to
+    eps, in both packages: max logdet X2 - (sum of the 2 largest
+    eigenvalues of X1) over the two epigraphs, as tests/test_coverage.py
+    poses each alone. The same status, the objective within 10 eps of
+    scs_tpu's and of the closed form, and the KKT conditions at eps, s in K
+    and y in K* by the oracle. Slow tier: the plain spectral projections
+    take ~0.5 s an iteration on the CPU, and the port's 50 iterations
+    alone take ~26 s (both solves together 32-44 s)."""
+    rng = np.random.RandomState(14)
+    M = rng.randn(3, 3)
+    X1 = M + M.T
+    G = rng.randn(2, 2)
+    X2 = G @ G.T + 0.5 * np.eye(2)
+    # the logdet cone's rows come first: (t2, 1, X2); then (t1, X1)
+    ld = np.concatenate([[0.0, 1.0], oracle._pack_sym(X2)])
+    sl = np.concatenate([[0.0], oracle._pack_sym(X1)])
+    A = np.zeros((len(ld) + len(sl), 2))
+    A[0, 1] = A[len(ld), 0] = -1.0
+    data = {"A": sparse.csc_matrix(A), "b": np.concatenate([ld, sl]),
+            "c": np.array([1.0, -1.0])}
+    K = {"d": [2], "sl_n": [3], "sl_k": [2]}
+    p_star = np.sort(np.linalg.eigvalsh(X1))[-2:].sum() - np.linalg.slogdet(X2)[1]
+    eps = 1e-5
+    kw = dict(eps_abs=eps, eps_rel=eps, verbose=False, dtype="float64", max_iters=20000)
+    sj = scs_tpu.solve(data, K, **kw)
+    st = scs_tpu_torch.solve(data, K, **CPU, **kw)
+    assert st["info"]["status"] == sj["info"]["status"] == "solved"
+    tol = 10 * eps * (1 + abs(p_star))
+    assert abs(st["info"]["pobj"] - sj["info"]["pobj"]) <= tol
+    assert abs(st["info"]["pobj"] - p_star) <= tol
+    A, b, c = data["A"].toarray(), data["b"], data["c"]
+    x, y, s = st["x"], st["y"], st["s"]
+    assert np.linalg.norm(A @ x + s - b) <= eps * (1 + max(np.linalg.norm(A @ x),
+                                                          np.linalg.norm(s), np.linalg.norm(b)))
+    assert np.linalg.norm(A.T @ y + c) <= eps * (1 + max(np.linalg.norm(A.T @ y),
+                                                        np.linalg.norm(c)))
+    assert abs(c @ x + b @ y) <= eps * (1 + max(abs(c @ x), abs(b @ y)))
+    np.testing.assert_allclose(s, oracle.proj_cone(s, K), atol=10 * eps)
+    np.testing.assert_allclose(y, oracle.proj_dual_cone(y, K), atol=10 * eps)
