@@ -158,7 +158,7 @@ Phases, one line each; any failure raises and exits nonzero:
      two chunks each, and phase 3's checks of C4 and C5 on the rows the two
      solves handed them early, in the middle and late (in the solve's
      type);
- 16. the status surface, f32 on the card (the default path): an
+ 16. the status surface, f32 on the card (passed explicitly): an
      infeasible and an unbounded LP of STATUS_M x STATUS_N under "direct",
      "indirect" and "bell" (G1/G2, and K1/K2 under "bell", launched),
      each "infeasible" / "unbounded" with its certificate held in f64 on
@@ -169,9 +169,18 @@ Phases, one line each; any failure raises and exits nonzero:
      no factorization; a solve stopped by time_limit_secs, which returns
      "solved_inaccurate" with finite iterates; a BatchedSCS of 8 LPs, one
      of them infeasible, each status at its original position. One line:
-     statuses, iterations and wall time, at most STATUS_WALL_S.
+     statuses, iterations and wall time, at most STATUS_WALL_S;
+ 17. dtype "auto" on the card: under "direct", "indirect", "bell", batched
+     dense and batched bell, an unbounded LP and two D-optimal designs over
+     a logdet cone, small, at the default settings (the two classes where
+     f32 fails to certify there): each solver built with dtype "auto" must
+     hold scs_tpu_torch.settings.AUTO_DTYPE (float64), then every status as
+     wanted, the host f64 residuals and cone membership within phase 9's
+     gates, the LP's certificate within phase 16's. One line, at most
+     AUTO_WALL_S.
 
-Then the whole run's wall time, one JSON line describing the kernels (each
+Then the whole run's wall time, each phase's wall seconds, one JSON line
+describing the kernels (each
 with its launches on the main path and in phase 12's bench run), and last
 the contract line
 {"ok": true, "device": {...}}. With no CUDA device the script exits
@@ -227,29 +236,50 @@ from scs_tpu_torch.tools.flagship import (
     kkt_check_batch,
     profile_window,
 )
+from scs_tpu_torch.tools.workloads import (
+    BATCH_B,
+    BATCH_DENSITY,
+    BATCH_EPS,
+    BATCH_M,
+    BATCH_N,
+    BATCH_SEED,
+    BATCH_WIDTH,
+    BELL_BS,
+    BELL_DENSITY,
+    BELL_EPS,
+    BELL_M,
+    BELL_N,
+    DENSE_QP_EPS,
+    DENSE_QP_M,
+    DENSE_QP_N,
+    HI_B,
+    HI_M,
+    HI_N,
+    HI_SEED,
+    STATUS_DENSITY,
+    STATUS_M,
+    STATUS_N,
+    STATUS_SEED,
+    WIDE_SEED,
+    certificate,
+    gen_dense_qp,
+    gen_status_lps,
+    kkt_check,
+)
 
-# The scs_tpu bench's `bell` cell (scs_tpu/bench_cli.py:_bell_submetric).
-BELL_M, BELL_N, BELL_DENSITY, BELL_BS, BELL_EPS = 30000, 20000, 0.002, 128, 1e-4
 BELL_TPU_ITERS = 625  # BENCH_r05.json, TPU v5e, f32 — for reference only
 QP_M, QP_N, QP_EPS = 3000, 2000, 1e-6
-# The scs_tpu bench's `bell_batch` cell (scs_tpu/bench_cli.py:341-409).
-BATCH_B, BATCH_M, BATCH_N, BATCH_DENSITY, BATCH_WIDTH = 8, 30720, 20480, 0.002, 6
-BATCH_SEED, BATCH_EPS = 11, 1e-4
 BATCH_TPU_MEAN_ITERS = 712.5  # BENCH_r05.json, TPU v5e, f32 — for reference only
 # The scs_tpu bench's flagship (scs_tpu/bench_cli.py:512-586): B dense QPs.
 FLAG_B, FLAG_M, FLAG_N = FLAGSHIP
 FLAG_EPS, FLAG_SEED = 1e-4, 1234
 FLAG_TPU_ITERS = (204, 600)  # mean, max: BENCH_r05.json, TPU v5e — reference only
-DENSE_QP_M, DENSE_QP_N, DENSE_QP_EPS = 300, 200, 1e-6
-# The scs_tpu bench's `hi_acc` cell (scs_tpu/bench_cli.py:235-338); its A
-# width is also the single high-accuracy QP's of phase 7
-HI_B, HI_M, HI_N, HI_SEED = 32, 1500, 1000, 4321
 HI_TPU_MEAN_ITERS = 242.2  # BENCH_r05.json, TPU v5e, (a) — a count, not a target
 # The scs_tpu bench's `mixed_cone` cell (scs_tpu/bench_cli.py:412-509) and the
 # wide mixed-cone batch (scs_tpu_torch/tools/mixed_cone.py).
 MIXED_TPU_ITERS = (351.6, 1200)  # mean, max: BENCH_r05.json, TPU v5e — reference only
 MIXED_OBJ_TOL = 1.5e-3  # the bench's 3-decimal objective check
-WIDE_SEED, WIDE_WORKERS = 4000, 8
+WIDE_WORKERS = 8
 CONE_KERNELS = (cone_ops._proj_exp_batch, cone_ops._proj_pow_batch, cone_ops._proj_box)
 SPECTRAL_KERNELS = (cone_ops._proj_logdet_vec_batch, cone_ops._proj_sl_vec_batch)  # C4, C5
 # Phase 15: the spectral-cone batches (scs_tpu_torch/tools/mixed_cone.py).
@@ -272,10 +302,9 @@ DOPT_DTYPE, SPECTRAL_DTYPE = "float64", "float32"
 # the script's time limit
 DOPT_CONE_EVERY, SPECTRAL_CONE_EVERY = 16, 4
 SPECTRAL_WORKERS = 8
-# Phase 16: the status surface. The LPs' size (sparse, density
-# STATUS_DENSITY, so that "bell" packs them); the QP's cone; the time limit
-# and the eps it stops short of; the phase's wall budget on the card.
-STATUS_M, STATUS_N, STATUS_DENSITY, STATUS_SEED = 1200, 800, 0.05, 1600
+# Phase 16: the status surface. The LPs' size (STATUS_*, tools/workloads.py);
+# the QP's cone; the time limit and the eps it stops short of; the phase's
+# wall budget on the card.
 STATUS_QP_K = {"z": 40, "l": 600, "q": [10] * 20}
 # the QP's solves check every STATUS_QP_CHECK iterations: at the default
 # 25 a warm and a cold solve of ~50 iterations often end at the same check
@@ -665,42 +694,13 @@ def _zero_counts(*kernels):
             f.shapes.clear()
 
 
-def kkt_check(data, sol, eps, margin=5.0):
-    """Host f64 KKT residuals of an LP/QP over the nonnegative cone against
-    the raw data, each within margin x the solver's own criterion."""
-    A, b, c = data["A"], data["b"], data["c"]
-    x, y, s = (np.asarray(sol[k], np.float64) for k in ("x", "y", "s"))
-    P = data.get("P")
-    Px = np.zeros_like(x)
-    if P is not None:
-        Px = P @ x + P.T @ x - P.diagonal() * x  # P holds the upper triangle
-    Ax, Aty = A @ x, A.T @ y
-    pri = np.linalg.norm(Ax + s - b)
-    dual = np.linalg.norm(Px + Aty + c)
-    gap = abs(x @ Px + c @ x + b @ y)
-    lim_p = eps + eps * max(np.linalg.norm(Ax), np.linalg.norm(s), np.linalg.norm(b))
-    lim_d = eps + eps * max(np.linalg.norm(Px), np.linalg.norm(Aty), np.linalg.norm(c))
-    lim_g = eps + eps * max(abs(x @ Px), abs(c @ x), abs(b @ y))
-    cone = min(s.min(), y.min()) / max(np.linalg.norm(s), np.linalg.norm(y), 1.0)
-    ok = (
-        pri <= margin * lim_p and dual <= margin * lim_d
-        and gap <= margin * lim_g and cone >= -margin * eps
-    )
-    if not ok:
-        raise AssertionError(
-            f"KKT check failed: pri {pri:.3e} (lim {lim_p:.3e}), dual {dual:.3e} "
-            f"(lim {lim_d:.3e}), gap {gap:.3e} (lim {lim_g:.3e}), cone {cone:.3e}"
-        )
-    return pri / lim_p, dual / lim_d, gap / lim_g
-
-
 def phase_main(bench):
     bell_spmv.launches = 0
     bell_spmv_batched.launches = 0
     t0 = time.perf_counter()
     solver = scs_tpu_torch.SCS(
         bench, {"l": BELL_M}, solver_strategy="bell", eps_abs=BELL_EPS,
-        eps_rel=BELL_EPS, max_iters=50000, verbose=False, device="cuda",
+        eps_rel=BELL_EPS, max_iters=50000, verbose=False, device="cuda", dtype="float32",
     )
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
@@ -708,8 +708,6 @@ def phase_main(bench):
     torch.cuda.synchronize()
     launches = bell_spmv.launches
     info = sol["info"]
-    if solver.stg.dtype != "float32":
-        raise AssertionError(f"expected an f32 solve on cuda, got {solver.stg.dtype}")
     if info["status"] != "solved":
         raise AssertionError(f"bell LP status {info['status']!r} after {info['iter']} iterations")
     if launches <= 0:
@@ -737,7 +735,7 @@ def bell_profile(bench, chunks=2, warmup=2):
 
     solver = scs_tpu_torch.SCS(
         bench, {"l": BELL_M}, solver_strategy="bell", eps_abs=BELL_EPS,
-        eps_rel=BELL_EPS, max_iters=50000, verbose=False, device="cuda",
+        eps_rel=BELL_EPS, max_iters=50000, verbose=False, device="cuda", dtype="float32",
     )
     core, mats = solver.core, solver.mats
 
@@ -887,24 +885,6 @@ def phase_batch(batch):
         f"(batched: {a['iter']}), pobj {b['pobj']:.6e} vs {a['pobj']:.6e} (rel {rel:.2e})"
     )
     return launches
-
-
-def gen_dense_qp(m, n, seed=5):
-    """One dense QP over the nonnegative cone by the flagship's
-    construction (scs_tpu.bench_cli.gen_batch with B = 1), in numpy; P is
-    passed as its upper triangle, as the API expects."""
-    rng = np.random.RandomState(seed)
-    A = rng.standard_normal((m, n)) / np.sqrt(m)
-    G = rng.standard_normal((n, n // 8))
-    P = (0.1 / (n // 8)) * (G @ G.T) + 1e-4 * np.eye(n)
-    z = rng.standard_normal(m)
-    y = np.maximum(z, 0)
-    x = rng.standard_normal(n)
-    c = -(A.T @ y) - P @ x
-    b = A @ x + (y - z)
-    return {
-        "A": sparse.csc_matrix(A), "P": sparse.csc_matrix(np.triu(P)), "b": b, "c": c,
-    }, float(0.5 * x @ P @ x + c @ x)
 
 
 def phase_dense_single():
@@ -1806,8 +1786,8 @@ def phase_instrumented(name_and_limit):
           f"accel_trial {1e3 * pt['accel_trial']:.3f} ms; solve {wall:.2f} s incl. phase_times; "
           f"summed per-problem timers {sum(r['info']['lin_sys_time'] + r['info']['cone_time'] + r['info']['accel_time'] for r in res):.3f} s")
 
-    # tests/test_observability.py:159's QP (900 x 600, default dtype: f32 on
-    # the card, eps 1e-5, so the high-accuracy mode): per-iteration lin_sys +
+    # tests/test_observability.py:159's QP (900 x 600, f32 as on the TPU,
+    # eps 1e-5, so the high-accuracy mode): per-iteration lin_sys +
     # cone from the "auto" estimate against the instrumented measurement,
     # gated with the reference test's bands and its one retry
     data, m = timer_proto.qp_900x600()
@@ -1954,6 +1934,7 @@ def _sharded_bell_rank(device):
     solver = ShardedSCS(
         bench, {"l": BELL_M}, mesh=mesh, solver_strategy="bell", bell_block_size=BELL_BS,
         eps_abs=BELL_EPS, eps_rel=BELL_EPS, max_iters=50000, verbose=False, device=device,
+        dtype="float32",
     )
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
@@ -2106,30 +2087,6 @@ def phase_sharded_dryrun():
     return res
 
 
-def gen_status_lps(m, n, density, seed):
-    """A solvable, an infeasible and an unbounded LP over the nonnegative
-    cone, m x n, sparse, in numpy. Solvable: b = A x0 + s0 with s0 >= 0,
-    c = -A'y0 with y0 >= 0 and y0 = 0 on the last two rows. Infeasible: its
-    last two rows replaced by x_0 <= -1 and -x_0 <= -1 (y = e_m-2 + e_m-1
-    certifies it: A'y = 0, b'y = -2); y0 still keeps its dual feasible, so
-    that no certificate of unboundedness exists too. Unbounded: its last
-    column made <= 0, b refitted to stay feasible, c random with c_n-1 =
-    -1, so that x_n-1 -> inf stays feasible and c'x -> -inf."""
-    rng = np.random.RandomState(seed)
-    A = sparse.random(m, n, density, random_state=rng, data_rvs=rng.standard_normal).tocsc()
-    x0, s0 = rng.standard_normal(n), np.abs(rng.standard_normal(m))
-    c = -(A[: m - 2].T @ np.abs(rng.standard_normal(m - 2)))
-    solvable = {"A": A, "b": A @ x0 + s0, "c": c}
-    pair = sparse.csr_matrix(([1.0, -1.0], ([0, 1], [0, 0])), shape=(2, n))
-    infeasible = {"A": sparse.vstack([A[: m - 2], pair]).tocsc(),
-                  "b": np.r_[solvable["b"][: m - 2], -1.0, -1.0], "c": c}
-    Au = A.tolil()
-    Au[:, n - 1] = -np.abs(rng.standard_normal((m, 1))) / np.sqrt(m)
-    Au = Au.tocsc()
-    unbounded = {"A": Au, "b": Au @ x0 + s0, "c": np.r_[rng.standard_normal(n - 1), -1.0]}
-    return solvable, infeasible, unbounded
-
-
 def gen_status_qp(K, n, seed):
     """A QP over K (z + l + SOCs) with a planted feasible point: b = A x0 + s0
     with s0 in K, P positive definite (upper triangle; its 0.1 I makes the
@@ -2151,17 +2108,11 @@ def gen_status_qp(K, n, seed):
 
 def _certificate(label, data, sol):
     """The certificate of an infeasible / unbounded LP over the nonnegative
-    cone, in f64 on the host against the raw data; returns its residual."""
-    A, b, c = data["A"], data["b"], data["c"]
+    cone (workloads.certificate), gated; returns its residual."""
     status = sol["info"]["status"]
-    if status == "infeasible":
-        y = np.asarray(sol["y"], np.float64)
-        res, obj, cone, scale = np.linalg.norm(A.T @ y), b @ y, y.min(), np.linalg.norm(y)
-    elif status == "unbounded":
-        x, s = (np.asarray(sol[k], np.float64) for k in ("x", "s"))
-        res, obj, cone, scale = np.linalg.norm(A @ x + s), c @ x, s.min(), np.linalg.norm(s)
-    else:
+    if status not in ("infeasible", "unbounded"):
         raise AssertionError(f"[16] {label}: status {status!r} after {sol['info']['iter']} it")
+    res, obj, cone, scale = certificate(data, sol)
     lim = STATUS_CERT_TOL * max(scale, 1.0)
     if not (res <= STATUS_CERT_TOL and obj < 0 and cone >= -lim):
         raise AssertionError(f"[16] {label}: certificate residual {res:.3e}, objective {obj:.3e}, "
@@ -2170,8 +2121,8 @@ def _certificate(label, data, sol):
 
 
 def phase_status():
-    """Phase 16: the status surface on the card, f32 (the default dtype on
-    CUDA): certificates under each strategy, update and warm start, the
+    """Phase 16: the status surface on the card in f32 (passed explicitly;
+    phase 17 checks what "auto" picks): certificates under each strategy, update and warm start, the
     time limit, a mixed batch (module docstring). Each gate raises; one
     line is printed."""
     t0 = time.perf_counter()
@@ -2181,7 +2132,8 @@ def phase_status():
         for label, data in (("infeasible", infeasible), ("unbounded", unbounded)):
             _zero_counts(gemv_rows, gemv_cols, bell_spmv)
             sol = scs_tpu_torch.solve(data, {"l": STATUS_M}, solver_strategy=strategy,
-                                      eps_infeas=STATUS_EPS_INFEAS, verbose=False)
+                                      eps_infeas=STATUS_EPS_INFEAS, verbose=False,
+                                      dtype="float32")
             if sol["info"]["status"] != label:
                 raise AssertionError(f"[16] {label} LP under {strategy!r}: status "
                                      f"{sol['info']['status']!r}")
@@ -2193,10 +2145,8 @@ def phase_status():
             words.append(f"{label}/{strategy} {sol['info']['iter']} it (cert {res:.1e})")
 
     data, rng = gen_status_qp(STATUS_QP_K, STATUS_QP_N, STATUS_SEED)
-    kw = dict(verbose=False, check_interval=STATUS_QP_CHECK)
+    kw = dict(verbose=False, check_interval=STATUS_QP_CHECK, dtype="float32")
     solver = scs_tpu_torch.SCS(data, STATUS_QP_K, **kw)
-    if solver.stg.dtype != "float32":
-        raise AssertionError(f"[16] expected an f32 solve, got {solver.stg.dtype}")
     first = solver.solve()
     b2 = data["b"] + 0.01 * np.abs(rng.standard_normal(len(data["b"])))
     c2 = data["c"] + 0.01 * rng.standard_normal(len(data["c"]))
@@ -2216,7 +2166,7 @@ def phase_status():
 
     t1 = time.perf_counter()
     part = scs_tpu_torch.solve(data, STATUS_QP_K, eps_abs=1e-9, eps_rel=1e-9, max_iters=10**8,
-                               time_limit_secs=STATUS_LIMIT_S, verbose=False)
+                               time_limit_secs=STATUS_LIMIT_S, verbose=False, dtype="float32")
     secs = time.perf_counter() - t1
     m = data["A"].shape[0]
     shaped = all(part[k].shape == (n,) and np.isfinite(part[k]).all()
@@ -2235,7 +2185,7 @@ def phase_status():
     res = scs_tpu_torch.BatchedSCS(
         {"A": np.stack([p["A"].toarray() for p in batch]),
          "b": np.stack([p["b"] for p in batch]), "c": np.stack([p["c"] for p in batch])},
-        {"l": mb}, eps_infeas=STATUS_EPS_INFEAS, verbose=False).solve()
+        {"l": mb}, eps_infeas=STATUS_EPS_INFEAS, verbose=False, dtype="float32").solve()
     statuses = [r["info"]["status"] for r in res]
     want = ["infeasible" if i == bad else "solved" for i in range(B)]
     if statuses != want:
@@ -2249,6 +2199,88 @@ def phase_status():
     print("[16] status surface, f32 on cuda: " + "; ".join(words) + f"; wall {wall:.1f} s")
     if wall > STATUS_WALL_S:
         raise AssertionError(f"[16] the phase took {wall:.1f} s, past its {STATUS_WALL_S} s")
+
+
+# Phase 17: dtype "auto" on the card. Small problems of the two classes
+# where f32 fails to certify at the default settings (PERF.md §6, the
+# dtype table), under each strategy: the dtype each solver resolves, then
+# its status and gates. The LP: gen_status_lps' unbounded LP at a size and
+# seed that certify in 25-50 iterations.
+AUTO_M, AUTO_N, AUTO_DENSITY, AUTO_SEED = 150, 100, 0.2, 1702
+AUTO_DOPT_N, AUTO_DOPT_P, AUTO_WALL_S = 4, 16, 30.0
+
+
+def _auto_classes():
+    """The classes of phase 17, {label: (batch, K, statuses)}: `batch` a
+    dict of one or two problems' numpy arrays ("A" dense), its problem 0
+    the one the single strategies solve; `statuses` each one's wanted
+    status. Both at the default settings: an unbounded LP over the
+    nonnegative cone (rows status_unbounded_*) and D-optimal designs over a
+    logdet cone (phase 15 (a)'s, at n = 4 over p = 16 candidates; row
+    dopt)."""
+    _, _, unbounded = gen_status_lps(AUTO_M, AUTO_N, AUTO_DENSITY, AUTO_SEED)
+    lp = {"A": unbounded["A"].toarray()[None], "b": unbounded["b"][None],
+          "c": unbounded["c"][None]}
+    dopt, _ = mixed_cone.gen_dopt_batch(2, AUTO_DOPT_N, AUTO_DOPT_P, mixed_cone.DOPT_SEED)
+    return {
+        "unbounded LP": (lp, {"l": AUTO_M}, ["unbounded"]),
+        "logdet": (dopt, mixed_cone.dopt_cone(AUTO_DOPT_N, AUTO_DOPT_P), ["solved", "solved"]),
+    }
+
+
+def _auto_gates(label, batch, K, statuses, results):
+    """Each status as wanted; the solved problems' host f64 residuals within
+    phase 9's gates at eps 1e-4 (the first one's cone membership too, by
+    the oracle), an unbounded one's certificate within phase 16's."""
+    got = [r["info"]["status"] for r in results]
+    if got != statuses[: len(got)]:
+        raise AssertionError(f"[17] {label}: statuses {got}, want {statuses[: len(got)]}")
+    rows = [sparse.csc_matrix(a.astype(np.float64)) for a in batch["A"][: len(got)]]
+    solved = [i for i, st in enumerate(got) if st == "solved"]
+    for i in set(range(len(got))) - set(solved):
+        _certificate(f"{label} problem {i}", {"A": rows[i], "b": batch["b"][i],
+                                              "c": batch["c"][i]}, results[i])
+    if solved:
+        mixed_cone.check_solutions(K, {k: v[solved] for k, v in batch.items()},
+                                   [results[i] for i in solved], 1e-4,
+                                   A_rows=[rows[i] for i in solved], cone_every=len(got))
+
+
+def phase_auto():
+    """Phase 17: for each strategy (direct, indirect, bell, batched dense,
+    batched bell) and each class of _auto_classes, a solver built with
+    dtype "auto" on the card: its stg.dtype must be AUTO_DTYPE (float64),
+    then its solve must pass _auto_gates. One line; at most AUTO_WALL_S."""
+    from scs_tpu_torch.settings import AUTO_DTYPE  # noqa: PLC0415
+
+    t0 = time.perf_counter()
+    words = []
+    kw = dict(verbose=False, max_iters=20000)
+    for label, (batch, K, statuses) in _auto_classes().items():
+        single = {"A": sparse.csc_matrix(batch["A"][0].astype(np.float64)), "b": batch["b"][0],
+                  "c": batch["c"][0]}
+        bell_batch = dict(batch, A=[sparse.csc_matrix(a.astype(np.float64)) for a in batch["A"]])
+        runs = [(strategy, lambda st=strategy: scs_tpu_torch.SCS(
+                    single, K, solver_strategy=st, **kw)) for strategy in ("direct", "indirect", "bell")]
+        runs += [("batched direct", lambda: scs_tpu_torch.BatchedSCS(batch, K, **kw)),
+                 ("batched bell", lambda: scs_tpu_torch.BatchedSCS(
+                     bell_batch, K, solver_strategy="bell", **kw))]
+        its = {}
+        for where, build in runs:
+            solver = build()
+            if solver.stg.dtype != AUTO_DTYPE:
+                raise AssertionError(f"[17] {label} under {where}: 'auto' resolved to "
+                                     f"{solver.stg.dtype}, the rule says {AUTO_DTYPE}")
+            res = solver.solve()
+            res = res if isinstance(res, list) else [res]
+            _auto_gates(f"{label} under {where}", batch, K, statuses, res)
+            its[where] = max(r["info"]["iter"] for r in res)
+        words.append(f"{label}: " + ", ".join(f"{w} {n} it" for w, n in its.items()))
+    wall = time.perf_counter() - t0
+    print(f"[17] dtype 'auto' on cuda is {AUTO_DTYPE} under every strategy; most iterations: "
+          + "; ".join(words) + f"; wall {wall:.1f} s")
+    if wall > AUTO_WALL_S:
+        raise AssertionError(f"[17] the phase took {wall:.1f} s, past its {AUTO_WALL_S} s")
 
 
 def phase_sharded(pobj_ref):
@@ -2288,32 +2320,42 @@ def main():
         phase_build()
         bell_profile(gen_bell_lp(BELL_M, BELL_N, BELL_DENSITY))
         return
-    phase_build()
+    walls = Counter()
+
+    def timed(tag, fn, *args):
+        """fn(*args), its wall seconds added to walls[tag]."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[tag] += time.perf_counter() - t0
+        return out
+
+    timed("2", phase_build)
     bench = gen_bell_lp(BELL_M, BELL_N, BELL_DENSITY)
     qp = gen_bell_qp(QP_M, QP_N, 0.02)
     batch = gen_bell_batch(BATCH_B, BATCH_M, BATCH_N, BATCH_DENSITY, BATCH_WIDTH, BATCH_SEED)
-    max_err, times, single_pack, shapes = phase_kernels(bench, qp)
-    max_err_b, times_b, batch_shape = phase_kernels_batched(batch, single_pack)
-    max_err_g, gemv_flag, _ = phase_kernels_dense(name_and_limit)
-    max_err_d1, d1_recs = phase_kernels_comp(name_and_limit)
-    cone_report, eigh_ms = phase_kernels_cones()
-    spectral_report = phase_kernels_spectral()
-    launches, pobj4 = phase_main(bench)
-    phase_qp(qp)
-    launches_b = phase_batch(batch)
+    max_err, times, single_pack, shapes = timed("3", phase_kernels, bench, qp)
+    max_err_b, times_b, batch_shape = timed("3", phase_kernels_batched, batch, single_pack)
+    max_err_g, gemv_flag, _ = timed("3", phase_kernels_dense, name_and_limit)
+    max_err_d1, d1_recs = timed("3", phase_kernels_comp, name_and_limit)
+    cone_report, eigh_ms = timed("3", phase_kernels_cones)
+    spectral_report = timed("3", phase_kernels_spectral)
+    launches, pobj4 = timed("4", phase_main, bench)
+    timed("5", phase_qp, qp)
+    launches_b = timed("6", phase_batch, batch)
     del bench, qp, batch
-    phase_dense_single()
-    d1_single = phase_hi_acc_single()
-    launches_g1, launches_g2 = phase_flagship()
-    cone_launches_9, cap_9 = phase_mixed_cone()
-    cone_launches_10, cap_10 = phase_mixed_wide()
-    phase_kernels_captured(("mixed_cone", cap_9), ("mixed_cone_wide", cap_10))
-    d1_cell = phase_hi_acc()
-    bench_launches = phase_bench(name_and_limit)
-    phase_instrumented(name_and_limit)
-    sharded_checks, sharded = phase_sharded(pobj4)
-    spectral_launches = phase_spectral()
-    phase_status()
+    timed("7", phase_dense_single)
+    d1_single = timed("7", phase_hi_acc_single)
+    launches_g1, launches_g2 = timed("8", phase_flagship)
+    cone_launches_9, cap_9 = timed("9", phase_mixed_cone)
+    cone_launches_10, cap_10 = timed("10", phase_mixed_wide)
+    timed("3", phase_kernels_captured, ("mixed_cone", cap_9), ("mixed_cone_wide", cap_10))
+    d1_cell = timed("11", phase_hi_acc)
+    bench_launches = timed("12", phase_bench, name_and_limit)
+    timed("13", phase_instrumented, name_and_limit)
+    sharded_checks, sharded = timed("14", phase_sharded, pobj4)
+    spectral_launches = timed("15", phase_spectral)
+    timed("16", phase_status)
+    timed("17", phase_auto)
 
     f32 = torch.float32
     spmv_src = "scs_tpu_torch/ops/csrc/bell_spmv.cu"
@@ -2440,6 +2482,9 @@ def main():
             for c in sharded_checks if c["kernel"] == base
         ]
     print(f"[end] whole run {time.perf_counter() - t_start:.1f} s of wall on {name_and_limit}")
+    print("[end] wall seconds by phase (3: the kernel checks, those on phases 9-10's rows "
+          "included; 15: its C4 / C5 checks included): " + ", ".join(f"{tag} {secs:.1f}" for tag, secs in
+                               sorted(walls.items(), key=lambda kv: int(kv[0]))))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -188,7 +188,7 @@ def gen_bell_batch(B, m, n, density, width=6, seed=11):
 
 
 def _bell_submetric(m=30000, n=20000, density=0.002, eps=1e-4):
-    """One large block-sparse LP under the bell strategy, with a
+    """One large block-sparse LP under the bell strategy in f32, with a
     per-iteration-cost baseline derived from the reference's measured
     indirect-CG anchor."""
     from .api import SCS  # noqa: PLC0415
@@ -197,7 +197,7 @@ def _bell_submetric(m=30000, n=20000, density=0.002, eps=1e-4):
     nnz = data["A"].nnz
     t0 = time.perf_counter()
     solver = SCS(
-        data, {"l": m}, solver_strategy="bell", eps_abs=eps, eps_rel=eps,
+        data, {"l": m}, solver_strategy="bell", dtype="float32", eps_abs=eps, eps_rel=eps,
         verbose=False, max_iters=50000, device=_device(),
     )
     setup = time.perf_counter() - t0

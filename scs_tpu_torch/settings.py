@@ -59,11 +59,15 @@ def _err(msg):
     raise ValueError(msg)
 
 
-def _default_dtype(device: str) -> str:
-    """Device-aware dtype default: float32 on CUDA (the SpMV-bound loop
-    moves half the bytes), float64 on the CPU (reference f64 parity for
-    the oracle test suite). float64 is allowed on CUDA too."""
-    return "float32" if torch.device(device).type == "cuda" else "float64"
+# What dtype "auto" resolves to, on every device. On the CPU: the reference
+# core is f64 unless built with -DSFLOAT. On CUDA: measured, PERF.md §6, the
+# dtype table of tools/dtype_proto.py (NVIDIA H100 80GB HBM3, 700.00 W). At
+# the default eps_infeas 1e-7, f32 certifies no unbounded LP (rows
+# status_unbounded_*), which rules it out for zero / nonnegative cones, the
+# class of the only rows where it is faster (flagship, bell_batch). It
+# reaches eps 1e-4 on 0 of 64 D-optimal designs (row dopt), and f64 is
+# faster or ties on every other row. Pass dtype="float32" to force f32.
+AUTO_DTYPE = "float64"
 
 
 @dataclasses.dataclass
@@ -95,9 +99,9 @@ class Settings:
     # back to the CPU unasked.
     device: str = "cuda"
     # Numeric dtype of the solve: "auto" | "float64" | "float32". "auto"
-    # resolves per device at construction: float32 on CUDA, float64 on the
-    # CPU (reference parity: the reference core is f64 unless built with
-    # -DSFLOAT).
+    # resolves at construction to AUTO_DTYPE, float64 on every device
+    # (PERF.md §6, the dtype table). Pass "float32" or "float64" to force
+    # either.
     dtype: str = "auto"
     # Linear-system strategy: "auto" | "direct" (dense Cholesky) |
     # "indirect" (matrix-free CG on dense A) | "bell" (matrix-free CG with
@@ -198,7 +202,7 @@ class Settings:
                 f"sees no CUDA device; pass device=\"cpu\" to solve on the CPU"
             )
         if self.dtype == "auto":
-            self.dtype = _default_dtype(self.device)
+            self.dtype = AUTO_DTYPE
         if int(self.check_interval) < 1:
             _err("check_interval must be >= 1")
         if int(self.host_poll_chunks) < 1:

@@ -42,7 +42,8 @@ def _problem(name):
 
         m, n = 30000, 20000
         return gen_bell_lp(m, n, 0.002), {"l": m}, dict(
-            solver_strategy="bell", bell_block_size=128, eps_abs=1e-4, eps_rel=1e-4
+            solver_strategy="bell", bell_block_size=128, dtype="float32", eps_abs=1e-4,
+            eps_rel=1e-4,
         )
     from .flagship import gen_batch  # noqa: PLC0415
 

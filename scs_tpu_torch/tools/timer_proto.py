@@ -2,9 +2,9 @@
 
     python -m scs_tpu_torch.tools.timer_proto [--runs N] [--json PATH]
 
-On tests/test_observability.py:159's QP (900 x 600, seed 11; f32 on the
-card at eps 1e-5, which is the high-accuracy mode), N times (default 8):
-an instrumented solve (phase_timing="always") and an "auto" solve, and the
+On tests/test_observability.py:159's QP (900 x 600, seed 11; f32, passed
+in QP_KW as the TPU's default, at eps 1e-5, which is the high-accuracy
+mode), N times (default 8): an instrumented solve (phase_timing="always") and an "auto" solve, and the
 auto/instrumented ratio of lin_sys + cone an iteration that the reference
 test bounds (`ratio()`, which chip_smoke.py's phase 13 and the port's card
 test use). The auto estimate is the mean of the rounds the auto solve
@@ -25,7 +25,7 @@ import sys
 
 import numpy as np
 
-QP_KW = dict(eps_abs=1e-5, eps_rel=1e-5, verbose=False, max_iters=20000)
+QP_KW = dict(eps_abs=1e-5, eps_rel=1e-5, verbose=False, max_iters=20000, dtype="float32")
 
 
 def qp_900x600():

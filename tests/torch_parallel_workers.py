@@ -340,3 +340,16 @@ def run_cases(names, extra=()):
         except Exception as e:  # reported to the test process
             out[name] = {"error": f"{type(e).__name__}: {e}"}
     return out
+
+
+# -- tests/test_torch_dtype_default.py ----------------------------------------
+
+
+def sharded_dtypes(settings_list):
+    """The dtype each ShardedSCS resolves on this rank, one per settings
+    dict, over a small LP (8 x 4, sparse A)."""
+    A = _sp.csc_matrix(np.vstack([np.eye(4), -np.eye(4)]))
+    data = {"A": A, "b": np.ones(8), "c": np.ones(4)}
+    mesh = make_mesh(axis_name="rows")
+    return [ShardedSCS(data, {"l": 8}, mesh=mesh, verbose=False, **kw).stg.dtype
+            for kw in settings_list]
