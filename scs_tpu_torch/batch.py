@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import info as info_mod
+from . import trace
 from .batch_core import BatchedCore
 from .cones import ConeSpec
 from .info import UNFINISHED
@@ -161,50 +162,75 @@ class BatchedSCS:
         self._dtype = torch.float64 if self.stg.dtype == "float64" else torch.float32
         self._device = torch.device(self.stg.device)
 
+        self._batch = trace.new_batch()
         t0 = time.perf_counter()
-        self.core = BatchedCore(m, n, self.has_P, spec, self.stg)
-        core = self.core
-
-        def lap(since):
-            core._sync()
-            return time.perf_counter() - since
-
-        if self.stg.solver_strategy == "bell":
-            # host-side sparse preprocessing per problem (equilibration and
-            # block-ELL packing never materialize dense A), then one stacked
-            # upload; as in scs_tpu the upload counts in "equilibrate"
-            self.mats = self._build_bell_mats(A, P, data["b"], data["c"], spec)
-            t_transfer = 0.0
-            t_prep = lap(t0)
-        else:
-            # upload, then everything on the device: one batched Ruiz
-            # equilibration scales the solver's own copy of (A, P) in place
-            A = self._own(A, (B, m, n))
-            P = self._own(P, (B, n, n)) if self.has_P else None
-            b = self._own(data["b"], (B, m))
-            c = self._own(data["c"], (B, n))
-            t_transfer = lap(t0)
-            t1 = time.perf_counter()
-            self.mats = self._build_dense_mats(A, P, b, c, spec)
-            del A, P
-            t_prep = lap(t1)
-        t2 = time.perf_counter()
-        # the factorization at the initial scale depends only on (A, P):
-        # cached for reset()/update(), so b/c sweeps and repeat solves never
-        # re-run the batched Cholesky (the empty slot under CG)
-        self._L = core._factorize(self.mats, core.initial_scale(B))
-        t_fact = lap(t2)
-        t2 = time.perf_counter()
-        self.reset()
-        t_g = lap(t2)
+        # marks at the set-up's boundaries, read by setup_breakdown; the one
+        # wait of set-up is its end's
+        marks = self._setup_marks = [self._mark()]
+        with trace.span("batch.setup", batch=self._batch, B=B, m=m, n=n):
+            if self.stg.solver_strategy == "bell":
+                self.core = BatchedCore(m, n, self.has_P, spec, self.stg)
+                # host-side sparse preprocessing per problem (equilibration
+                # and block-ELL packing never materialize dense A), then one
+                # stacked upload; as in scs_tpu the upload counts in
+                # "equilibrate"
+                marks.append(marks[0])
+                with trace.span("setup.equilibrate"):
+                    self.mats = self._build_bell_mats(A, P, data["b"], data["c"], spec)
+            else:
+                # upload, then everything on the device: one batched Ruiz
+                # equilibration scales the solver's own copy of (A, P) in place
+                with trace.span("setup.upload"):
+                    self.core = BatchedCore(m, n, self.has_P, spec, self.stg)
+                    A = self._own(A, (B, m, n))
+                    P = self._own(P, (B, n, n)) if self.has_P else None
+                    b = self._own(data["b"], (B, m))
+                    c = self._own(data["c"], (B, n))
+                marks.append(self._mark())
+                with trace.span("setup.equilibrate"):
+                    self.mats = self._build_dense_mats(A, P, b, c, spec)
+                del A, P
+            marks.append(self._mark())
+            core = self.core
+            # the factorization at the initial scale depends only on (A, P):
+            # cached for reset()/update(), so b/c sweeps and repeat solves
+            # never re-run the batched Cholesky (the empty slot under CG)
+            with trace.span("setup.factorize"):
+                self._L = core._factorize(self.mats, core.initial_scale(B))
+            marks.append(self._mark())
+            with trace.span("setup.g"):
+                self._states = core.init_state(self.mats, L=self._L)
+                marks.append(self._mark())
+                core._sync("setup_sync")
         self._setup_time = time.perf_counter() - t0
-        self.setup_breakdown = {
-            "transfer": t_transfer,
-            "equilibrate": t_prep,
-            "factorize": t_fact,
-            "compute_g": t_g,
-        }
+        self._setup_breakdown = None
         self._phase_cache = None
+
+    def _mark(self):
+        """A point of set-up: a CUDA event on the solver's stream, or on the
+        CPU the host's clock (every operation there has ended on return)."""
+        if self._device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self._device))
+        return ev
+
+    @property
+    def setup_breakdown(self):
+        """Seconds of set-up's parts ("transfer", "equilibrate", "factorize",
+        "compute_g"), each between two of the marks at the `setup.*` spans'
+        boundaries: on a card the device's clock, read at the first access
+        (set-up's final wait has passed every mark)."""
+        if self._setup_breakdown is None:
+            marks = self._setup_marks
+            if self._device.type == "cuda":
+                secs = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+            else:
+                secs = [b - a for a, b in zip(marks, marks[1:])]
+            self._setup_breakdown = dict(
+                zip(("transfer", "equilibrate", "factorize", "compute_g"), secs)
+            )
+        return self._setup_breakdown
 
     def _own(self, a, shape):
         """The solver's own tensor of `a` on its device in its dtype: always
@@ -212,7 +238,10 @@ class BatchedSCS:
         it in place)."""
         if not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.ascontiguousarray(a))
-        return a.to(device=self._device, dtype=self._dtype, copy=True).reshape(shape)
+        out = a.to(device=self._device, dtype=self._dtype, copy=True).reshape(shape)
+        if a.device.type == "cpu":
+            trace.uploaded(self._device, "setup_upload")
+        return out
 
     def _build_dense_mats(self, A, P, b, c, spec):
         """Batched dense Mats from the solver's own (A, P, b, c) tensors:
@@ -343,7 +372,7 @@ class BatchedSCS:
         scale against the cached factorization (or by CG), then fresh
         iterates."""
         self._states = self.core.init_state(self.mats, L=self._L)
-        self.core._sync()
+        self.core._sync("setup_sync")
 
     def phase_times(self):
         """Measured time of each phase for the WHOLE batch, in seconds per
@@ -382,7 +411,9 @@ class BatchedSCS:
 
         def t(a, k):
             a = np.asarray(a, np.float64).reshape(self.B, k)
-            return torch.as_tensor(a, dtype=self._dtype, device=self._device)
+            out = torch.as_tensor(a, dtype=self._dtype, device=self._device)
+            trace.uploaded(self._device, "update_upload")
+            return out
 
         if b is not None:
             b = t(b, self.m)
@@ -406,9 +437,11 @@ class BatchedSCS:
         dicts. mask: which rows of the current batch to store (None = all);
         rows whose original position already holds a result (compaction
         padding duplicates) are skipped."""
-        x, y, s, x_cert, y_cert, s_cert, scal = (
-            a.detach().cpu().numpy() for a in pack
-        )
+        host = []
+        for a in pack:
+            host.append(a.detach().cpu().numpy())
+            trace.host_sync("results")
+        x, y, s, x_cert, y_cert, s_cert, scal = host
         timers = self.phase_times() if self.stg.phase_timing == "always" else None
         lookback = self.core.lookback
         interval = max(self.core.interval, 1)
@@ -605,9 +638,16 @@ class BatchedSCS:
         """Solve the batch. With compaction enabled (at B >= 2*_MIN_BUCKET),
         finished problems are retired at segment boundaries and the
         survivors are re-packed into a smaller batch; per-problem
-        `solve_time` is the wall-clock until that problem's retirement."""
-        if self._states is None:
-            self.reset()
+        `solve_time` is the wall-clock until that problem's retirement.
+        Recorded as the span `batch.solve` (trace.py), its segments, probes,
+        rescales, finalizations, compactions and result building as its
+        children."""
+        with trace.span("batch.solve", batch=self._batch, B=self.B):
+            if self._states is None:
+                self.reset()
+            return self._solve_loop()
+
+    def _solve_loop(self):
         core = self.core
         t0 = time.perf_counter()
         states, mats = self._states, self.mats
@@ -633,11 +673,19 @@ class BatchedSCS:
             return seg
 
         def probe_of(st):
-            return torch.stack([
-                st.status.to(torch.float64),
-                st.it.to(torch.float64),
-                st.rescale_trigger.to(torch.float64),
-            ]).cpu().numpy()
+            with trace.span("solve.probe"):
+                out = torch.stack([
+                    st.status.to(torch.float64),
+                    st.it.to(torch.float64),
+                    st.rescale_trigger.to(torch.float64),
+                ]).cpu().numpy()
+                trace.host_sync("probe")
+            return out
+
+        def finalize(st, mats, positions, mask):
+            with trace.span("solve.finalize"):
+                pending.append((core.finalize_pack(st, mats), positions, mask,
+                                time.perf_counter() - t0))
 
         # The next segment runs before this segment's probe is read, and
         # the probe's decisions (rescale, retirement) act on that next
@@ -657,14 +705,14 @@ class BatchedSCS:
                 done = (status_np != UNFINISHED) | (it_np >= max_iters)
                 timed_out = bool(time_limit and (time.perf_counter() - t0) > time_limit)
                 if done.all() or timed_out:
-                    pending.append((core.finalize_pack(states, mats), positions, None,
-                                    time.perf_counter() - t0))
+                    finalize(states, mats, positions, None)
                     break
                 states = nxt
                 if trig_np.any():
                     # some problem's adaptive scale drifted: apply the
                     # decision recorded in the (next) state
-                    states = core.rescale_step(states, mats)
+                    with trace.span("solve.rescale"):
+                        states = core.rescale_step(states, mats)
                 if not compact:
                     continue
                 n_act = int((~done).sum())
@@ -675,23 +723,23 @@ class BatchedSCS:
                 if target < cur:
                     # retire the finished problems (frozen in `states`, so
                     # their pack is final), then compact the rest
-                    pending.append((core.finalize_pack(states, mats), positions, done,
-                                    time.perf_counter() - t0))
-                    active = np.where(~done)[0]
-                    pad = np.full(target - n_act, active[0], dtype=np.int64)
-                    idx = np.concatenate([active, pad])
-                    states, mats = self._compact(
-                        states, mats, torch.as_tensor(idx, device=self._device)
-                    )
+                    finalize(states, mats, positions, done)
+                    with trace.span("solve.compact", bucket=target):
+                        active = np.where(~done)[0]
+                        pad = np.full(target - n_act, active[0], dtype=np.int64)
+                        idx = np.concatenate([active, pad])
+                        idx_dev = torch.as_tensor(idx, device=self._device)
+                        trace.uploaded(self._device, "compact_upload")
+                        states, mats = self._compact(states, mats, idx_dev)
                     positions = positions[idx]
                     self.bucket_ladder.append(target)
         except KeyboardInterrupt:
             interrupted = True
             # finalize the in-flight state so partial results are returned
-            pending.append((core.finalize_pack(states, mats), positions, None,
-                            time.perf_counter() - t0))
-        for pack, pos, mask, el in pending:
-            self._materialize(results, pos, pack, mask, el, interrupted=interrupted)
+            finalize(states, mats, positions, None)
+        with trace.span("solve.results"):
+            for pack, pos, mask, el in pending:
+                self._materialize(results, pos, pack, mask, el, interrupted=interrupted)
         # states are compacted/finished now; a later solve() cold-starts
         self._states = None
         return results

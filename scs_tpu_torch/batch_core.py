@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import trace
 from .cones import ConeSpec
 from .info import FAILED, UNFINISHED
 from .ops import df32
@@ -39,7 +40,7 @@ from .ops.projections import get_projector
 from .ops.dense import gemv_cols, gemv_rows
 from .ops.sparse import bell_spmv_batched
 from .settings import Settings
-from .solver import ZERO_CONE_RY_FACTOR, Core, Diag, Mats, _no_tf32
+from .solver import ZERO_CONE_RY_FACTOR, Core, Diag, Mats, _cholesky_solve, _no_tf32
 
 
 def _norm(x):
@@ -150,6 +151,7 @@ class BatchedCore:
         self.spec = spec
         self._init_strategy(spec, stg)
         self.zero_mask = torch.as_tensor(spec.zero_row_mask(), device=self.device)
+        trace.uploaded(self.device, "setup_upload")
         self.eps_floor = 3e-7 if self.dtype == torch.float32 else 1e-14
         self._proj = get_projector(spec, self.dtype)
         self.lookback = int(stg.acceleration_lookback)
@@ -232,7 +234,7 @@ class BatchedCore:
         active = (rnrm > tol) & (stg.cg_max_iters > 0)
         if rows is not None:
             active = active & rows
-        while bool(active.any()):  # one device read per CG iteration
+        while trace.any_(active, "cg"):  # one device read per CG iteration
             a = _col(active)
             Ap = self._matvec_S(mats, dy, p)
             alpha = _col(rz / _dot(p, Ap))
@@ -446,7 +448,7 @@ class BatchedCore:
                 G.diagonal(dim1=1, dim2=2).add_(_col(reg))
                 rhs = dF @ fs
             chol, info = torch.linalg.cholesky_ex(G)
-            gamma = torch.cholesky_solve(rhs, chol)[:, :, 0]  # (B, L)
+            gamma = _cholesky_solve(rhs, chol, "aa_solve")[:, :, 0]  # (B, L)
             gamma = torch.where(_col(info == 0), gamma, math.nan)
             g = gamma[:, None, :]
             beta = stg.acceleration_relaxation
@@ -482,7 +484,7 @@ class BatchedCore:
         aa = self._aa_push(state.aa, zeta, f)
         plain = st1._replace(aa=aa)
         do_aa = ((state.it + 1) % self.interval == 0) & (aa.count >= 1)
-        if not bool(do_aa.any()):
+        if not trace.any_(do_aa, "aa_trial"):
             return self._accumulate(state, plain)
 
         cand, gamma, reg = self._aa_candidate(aa, zeta, f)
@@ -675,7 +677,7 @@ class BatchedCore:
 
         # ergodic candidate, per problem
         try_avg = (status == UNFINISHED) & (state.avg_cnt > 50.0)
-        if bool(try_avg.any()):
+        if trace.any_(try_avg, "avg"):
             cnt = _col(torch.clamp_min(state.avg_cnt, 1.0))
             ua = state.u_sum / cnt
             st_a = state._replace(u=ua, v=state.v_sum / cnt)
@@ -738,7 +740,8 @@ class BatchedCore:
         transients are that small."""
         if self.indirect:
             return state.L
-        idx = trigger.nonzero()[:, 0]
+        idx = trigger.nonzero()[:, 0]  # sized on the host: a read of the device
+        trace.host_sync("rescale_rows")
         # _factorize reads only A, P and the scale
         sub = mats._replace(
             A=mats.A.index_select(0, idx),
@@ -752,7 +755,7 @@ class BatchedCore:
         since_rescale + 1 for the others. The setup work (factorization,
         the setup CG) runs only on the triggered rows."""
         kept = state._replace(since_rescale=state.since_rescale + 1)
-        if not bool(trigger.any()):
+        if not trace.any_(trigger, "rescale"):
             return kept
         stg = self.stg
         n, m = self.n, self.m
@@ -840,11 +843,13 @@ class BatchedCore:
 
     def run_seg(self, state: State, mats: Mats, max_iters, seg):
         """Up to `seg` masked chunks, while any row is live (one device
-        read per chunk)."""
-        for _ in range(seg):
-            if not bool(self.live(state, max_iters).any()):
-                break
-            state = self.masked_chunk(state, mats, max_iters)
+        read per chunk); the span `solve.segment`."""
+        with trace.span("solve.segment", bucket=state.it.shape[0]) as sp:
+            chunks = 0
+            while chunks < seg and trace.any_(self.live(state, max_iters), "live"):
+                state = self.masked_chunk(state, mats, max_iters)
+                chunks += 1
+            sp.set(chunks=chunks)
         return state
 
     # -- per-phase timing -----------------------------------------------------
@@ -864,7 +869,7 @@ class BatchedCore:
         per-problem choice of the ergodic average on exhaustion)."""
         n, m = self.n, self.m
         maybe = (state.status == UNFINISHED) & (state.avg_cnt > 50.0)
-        if bool(maybe.any()):
+        if trace.any_(maybe, "finalize"):
             def score(st):
                 d, _, _ = self._residuals(st, mats)
                 return d.res_pri + d.res_dual + d.gap

@@ -48,6 +48,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import trace
 from ..cones import ConeSpec
 from .dense import _launch
 
@@ -1224,7 +1225,13 @@ def make_cone_projector(spec: ConeSpec, dtype=torch.float64) -> Callable:
 
     def on_device(device):
         if device not in per_device:
-            t = functools.partial(torch.as_tensor, device=device)
+
+            def t(a, **kw):
+                out = torch.as_tensor(a, device=device, **kw)
+                if out.numel():
+                    trace.uploaded(device, "proj_tables")
+                return out
+
             per_device[device] = {
                 "order": t(order) if permuted else None,
                 "inverse": t(inverse) if permuted else None,

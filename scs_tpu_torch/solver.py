@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import trace
 from .cones import ConeSpec
 from .info import FAILED, INFEASIBLE, SOLVED, UNBOUNDED, UNFINISHED
 from .ops import df32
@@ -50,6 +51,16 @@ from .ops.sparse import bell_spmv
 from .settings import Settings
 
 ZERO_CONE_RY_FACTOR = 1e-3  # zero-cone rows get rho_y = factor / scale
+
+
+def _cholesky_solve(b, L, site):
+    """torch.cholesky_solve, its wait counted at `site` (trace.py): on a
+    card PyTorch solves a batch of more than one system with MAGMA, which
+    reads its status on the host."""
+    x = torch.cholesky_solve(b, L)
+    if x.is_cuda and x.dim() > 2 and math.prod(x.shape[:-2]) > 1:
+        trace.host_sync(site)
+    return x
 
 
 @contextlib.contextmanager
@@ -267,9 +278,11 @@ class Core:
     def _scalar(self, v):
         return torch.tensor(v, dtype=self.dtype, device=self.device)
 
-    def _sync(self):
+    def _sync(self, site="sync"):
+        """Wait for the device; a host sync counted at `site` (trace.py)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        trace.host_sync(site)
 
     # -- metric helpers ---------------------------------------------------
 
@@ -415,7 +428,7 @@ class Core:
         factor."""
         if self.use_inverse:
             return gemv_rows(L, r)
-        return torch.cholesky_solve(r[..., None], L)[..., 0]
+        return _cholesky_solve(r[..., None], L, "factor_solve")[..., 0]
 
     def _direct_solve(self, mats: Mats, L, dy, rhs):
         """S^-1 rhs by the factor, then refine_steps passes of iterative
@@ -460,7 +473,7 @@ class Core:
             # L := S^-1 (SPD, equilibrated; one-time n^3, then matvecs)
             eye = torch.eye(self.n, dtype=self.dtype, device=self.device)
             with _no_tf32():
-                L = torch.cholesky_solve(eye.expand_as(L), L)
+                L = _cholesky_solve(eye.expand_as(L), L, "factorize")
             if not L.is_contiguous():
                 # the library may hand the solve back column-major; S^-1 is
                 # symmetric, so its transposed view is the same matrix (to
